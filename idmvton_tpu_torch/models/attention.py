@@ -12,7 +12,16 @@ fuse into their GEMMs (``ln_linear``), GarmentNet's emitted LayerNorm runs
 ``fused_layer_norm`` and self-attention runs ``flash_attention_gemm`` --
 each where the JAX package takes the Pallas kernel, under the same shape
 predicates. Cross-attention (77 text + 16 IP tokens) stays plain, as the
-JAX package leaves it to XLA.
+JAX package leaves it to XLA, unless ``IDMVTON_CROSS_KERNEL=1`` opts the
+CUDA impl into the small-KV kernel (``cross_attention_small_kv``), as it
+opts JAX's Pallas impl in; the torch impl ignores the switch, as JAX's XLA
+impl does.
+
+``quantize_unet_linears_int8`` makes every block's ``to_qkv`` /
+``ff.proj_in`` an int8 ``QuantLinear``. At the fused sites on CUDA these
+run the W8A8 kernel ``ln_linear_i8``; every other use of them (the plain
+path, the garment K/V GEMM, an unfused site) takes the dequantized weight,
+as the JAX package does.
 """
 
 from __future__ import annotations
@@ -21,15 +30,19 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from idmvton_tpu_torch.models.layers import Linear, Norm, layer_norm, linear
+from idmvton_tpu_torch.models.layers import (
+    Linear, Norm, QuantLinear, layer_norm, linear, quantize_linear_int8,
+)
 from idmvton_tpu_torch.ops.attention import (
     concat_kv_attention, decoupled_ip_attention, sdpa,
 )
 from idmvton_tpu_torch.ops.cuda_attention import (
+    cross_attention_small_kv, cross_attention_small_kv_supported,
     flash_attention_gemm, flash_attention_gemm_supported,
 )
 from idmvton_tpu_torch.ops.cuda_norm import (
-    fused_layer_norm, ln_linear, ln_linear_supported, supports_fused_ln,
+    fused_layer_norm, ln_linear, ln_linear_i8, ln_linear_supported,
+    supports_fused_ln,
 )
 from idmvton_tpu_torch.ops.dispatch import resolve
 
@@ -45,14 +58,26 @@ def _merge_heads(x):
 
 
 def _ln_proj(x, norm, proj, *, geglu=False, impl=None):
-    """norm(x) @ proj: the fused kernel where it applies, else plain."""
+    """norm(x) @ proj: the fused kernel where it applies (the W8A8 one for
+    an int8 projection), else plain (an int8 projection dequantized, as JAX
+    ``pallas_norm.ln_linear`` does where its kernel does not apply). Returns
+    the raw product for ``geglu=False``, value * gelu(gate) for
+    ``geglu=True``."""
+    quant = isinstance(proj, QuantLinear)
+    w = proj.kernel_i8 if quant else proj.kernel
     if (norm is not None and resolve(impl, x) == "cuda"
-            and ln_linear_supported(x, proj.kernel, geglu=geglu)):
-        return ln_linear(x, norm.scale, norm.bias, proj.kernel, proj.bias,
-                         geglu=geglu)
+            and ln_linear_supported(x, w, geglu=geglu)):
+        if quant:
+            return ln_linear_i8(x, norm.scale, norm.bias, w,
+                                proj.kernel_scale, proj.bias, geglu=geglu)
+        return ln_linear(x, norm.scale, norm.bias, w, proj.bias, geglu=geglu)
     if norm is not None:
         x = layer_norm(norm, x)
-    return linear(proj, x)
+    h = linear(proj.dequantized(x.dtype), x)
+    if not geglu:
+        return h
+    value, gate = h.chunk(2, dim=-1)
+    return value * F.gelu(gate.float()).to(x.dtype)
 
 
 class SelfAttention(nn.Module):
@@ -76,7 +101,8 @@ class SelfAttention(nn.Module):
         kv_g = None
         if garment_feat is not None:
             # garment tokens only contribute K/V: the KV columns of to_qkv
-            wk = self.to_qkv.kernel[:, inner:]
+            # (of an int8 to_qkv, dequantized: a bf16 GEMM, not a W8A8 site)
+            wk = self.to_qkv.dequantized(qkv.dtype).kernel[:, inner:]
             kv_g = torch.matmul(garment_feat.to(qkv.dtype), wk.to(qkv.dtype))
         if (resolve(impl, x) == "cuda"
                 and flash_attention_gemm_supported(qkv, heads)):
@@ -122,6 +148,21 @@ class CrossAttention(nn.Module):
         ``to_kv_ip`` the trailing IP tokens get their own K/V and an
         independently normalized softmax (IPAttnProcessor2_0)."""
         heads = self.heads
+        with_ip = self.to_kv_ip is not None and ip_num_tokens > 0
+        if resolve(impl, x) == "cuda" and cross_attention_small_kv_supported(
+                self.to_out.kernel.shape[0], heads, context.shape[1]):
+            # GEMM-layout small-KV kernel (JAX attention.py:170-187): both
+            # softmaxes in one pass over q, no split-heads copies
+            q = _ln_proj(x, norm, self.to_q, impl=impl)
+            if with_ip:
+                out = cross_attention_small_kv(
+                    q, linear(self.to_kv, context[:, :-ip_num_tokens]),
+                    linear(self.to_kv_ip, context[:, -ip_num_tokens:]),
+                    heads=heads, ip_scale=ip_scale)
+            else:
+                out = cross_attention_small_kv(
+                    q, linear(self.to_kv, context), heads=heads)
+            return linear(self.to_out, out)
         q = _split_heads(_ln_proj(x, norm, self.to_q, impl=impl), heads)
 
         def kv(p, ctx):
@@ -129,7 +170,7 @@ class CrossAttention(nn.Module):
                                        -1)
             return h[:, :, 0], h[:, :, 1]
 
-        if self.to_kv_ip is not None and ip_num_tokens > 0:
+        if with_ip:
             k, v = kv(self.to_kv, context[:, :-ip_num_tokens])
             k_ip, v_ip = kv(self.to_kv_ip, context[:, -ip_num_tokens:])
             out = decoupled_ip_attention(q, k, v, k_ip, v_ip,
@@ -150,15 +191,7 @@ class FeedForward(nn.Module):
         self.proj_out = Linear(dim * mult, dim, **kw)
 
     def forward(self, x, *, norm=None, impl=None):
-        if (norm is not None and resolve(impl, x) == "cuda"
-                and ln_linear_supported(x, self.proj_in.kernel, geglu=True)):
-            h = ln_linear(x, norm.scale, norm.bias, self.proj_in.kernel,
-                          self.proj_in.bias, geglu=True)
-            return linear(self.proj_out, h)
-        if norm is not None:
-            x = layer_norm(norm, x)
-        value, gate = linear(self.proj_in, x).chunk(2, dim=-1)
-        h = value * F.gelu(gate.float()).to(x.dtype)
+        h = _ln_proj(x, norm, self.proj_in, geglu=True, impl=impl)
         return linear(self.proj_out, h)
 
 
@@ -201,3 +234,22 @@ class TransformerBlock(nn.Module):
                            impl=impl)
         x = x + self.ff(x, norm=self.norm3, impl=impl)
         return x, emitted
+
+
+def quantize_unet_linears_int8(unet: nn.Module, *,
+                               attn_qkv: bool = True) -> nn.Module:
+    """Quantize every transformer block's ``attn1.to_qkv`` and
+    ``ff.proj_in`` in place (JAX ``ops.quant.quantize_unet_linears_int8``,
+    which returns a new tree; in place, the bf16 weights are freed on the
+    card); returns ``unet``.
+
+    ``attn_qkv=False`` skips ``to_qkv``: pass it for the GarmentNet (emit)
+    tower, whose self-attention runs on the emitted post-norm1 states with
+    no fused LayerNorm, so a quantized ``to_qkv`` would never reach the W8A8
+    kernel and would only add weight rounding error."""
+    blocks = [m for m in unet.modules() if isinstance(m, TransformerBlock)]
+    for blk in blocks:
+        if attn_qkv:
+            blk.attn1.to_qkv = quantize_linear_int8(blk.attn1.to_qkv)
+        blk.ff.proj_in = quantize_linear_int8(blk.ff.proj_in)
+    return unet

@@ -9,12 +9,15 @@ parameters are fp32 as in the JAX package.
 ``conv2d`` routes 3x3 stride-1 SAME convs to the ``conv3x3`` kernels and
 ``group_norm`` its statistics to ``gn_spatial_stats`` exactly where the JAX
 package takes its Pallas kernels; everything else is plain PyTorch.
+``IDMVTON_CONV_PADACC=1`` swaps the ``conv3x3`` sites (not the
+``conv3x3_hblock`` ones) to the padded-accumulator kernel, as in JAX.
+``QuantLinear`` is the int8 form of ``Linear`` for W8A8 serving.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn as nn
@@ -22,11 +25,14 @@ import torch.nn.functional as F
 
 from idmvton_tpu_torch.ops.dispatch import resolve
 from idmvton_tpu_torch.ops.cuda_conv import (
-    conv3x3, conv3x3_hblock, conv3x3_hblock_supported, conv3x3_supported,
-    conv3x3_torch,
+    conv3x3, conv3x3_hblock, conv3x3_hblock_supported, conv3x3_padacc,
+    conv3x3_supported, conv3x3_torch, conv_padacc_enabled,
 )
 from idmvton_tpu_torch.ops.cuda_norm import (
     gn_spatial_stats, gn_stats_supported, layer_norm_torch,
+)
+from idmvton_tpu_torch.ops.quant import (
+    dequantize_kernel_int8, quantize_kernel_int8,
 )
 
 
@@ -59,6 +65,48 @@ class Linear(nn.Module):
                      generator)
         if self.bias is not None:
             self.bias.zero_()
+
+    def dequantized(self, dtype):
+        """The projection as ``linear`` takes it: already plain."""
+        return self
+
+
+class Proj(NamedTuple):
+    """A plain (kernel, bias) pair, as ``linear`` takes it."""
+    kernel: torch.Tensor
+    bias: Optional[torch.Tensor]
+
+
+class QuantLinear(nn.Module):
+    """An int8-quantized ``Linear`` (JAX ``ops.quant.quantize_linear_int8``
+    layout and key names): ``kernel_i8`` (in, out) int8 with symmetric
+    per-output-channel fp32 ``kernel_scale`` (out,), and the unquantized
+    ``bias`` (or None). Built by ``quantize_linear_int8``; all three are
+    parameters, so the loader's every-parameter check covers them."""
+
+    def __init__(self, in_dim, out_dim, *, bias=None, device):
+        super().__init__()
+        self.kernel_i8 = _param((in_dim, out_dim), torch.int8, device)
+        self.kernel_scale = _param((out_dim,), torch.float32, device)
+        self.bias = bias
+
+    def dequantized(self, dtype) -> Proj:
+        """The ``dtype`` view (JAX ``pallas_norm.dequantize_int8``):
+        ``kernel_i8 * kernel_scale``, and the bias."""
+        return Proj(dequantize_kernel_int8(self.kernel_i8, self.kernel_scale,
+                                           dtype), self.bias)
+
+
+def quantize_linear_int8(lin: Linear) -> QuantLinear:
+    """``Linear`` -> ``QuantLinear`` (``quantize_kernel_int8`` of its
+    kernel); the bias is kept as it is."""
+    w_i8, scale = quantize_kernel_int8(lin.kernel)
+    q = QuantLinear(w_i8.shape[0], w_i8.shape[1], bias=lin.bias,
+                    device=w_i8.device)
+    with torch.no_grad():
+        q.kernel_i8.copy_(w_i8)
+        q.kernel_scale.copy_(scale)
+    return q
 
 
 class Conv(nn.Module):
@@ -159,6 +207,8 @@ def conv2d(p, x, *, stride: int = 1, padding="SAME", impl=None):
         if resolve(impl, x) == "cuda":
             kk = k.to(x.dtype)
             if conv3x3_supported(x, kk):
+                if conv_padacc_enabled():
+                    return conv3x3_padacc(x, kk, p.bias)
                 return conv3x3(x, kk, p.bias)
             if conv3x3_hblock_supported(x, kk):
                 return conv3x3_hblock(x, kk, p.bias)

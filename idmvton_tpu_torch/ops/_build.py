@@ -1,6 +1,6 @@
 """Build the CUDA kernels at first use and bind them with ctypes.
 
-The four sources under ``csrc/`` have a plain C interface (no PyTorch
+The sources under ``csrc/`` have a plain C interface (no PyTorch
 headers), so ``nvcc`` builds them in seconds. They compile in parallel into
 one shared library under ``idmvton_tpu_torch/_build/``, named by a hash of
 the sources and flags; a library that is already there is reused. Every C
@@ -22,8 +22,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("ln_linear.cu", "gn_stats.cu", "conv3x3.cu",
-           "flash_attention_gemm.cu")
+SOURCES = ("ln_linear.cu", "ln_linear_i8.cu", "gn_stats.cu", "conv3x3.cu",
+           "conv3x3_padacc.cu", "flash_attention_gemm.cu",
+           "cross_attention_small_kv.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -34,11 +35,15 @@ _F = ctypes.c_float
 # C entry points: name -> argtypes (all return int, a cudaError_t)
 SIGNATURES = {
     "idm_ln_linear": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "idm_ln_linear_i8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "idm_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _P],
     "idm_gn_stats": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "idm_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "idm_conv3x3_padacc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "idm_flash_attention_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                  _F, _I, _P],
+    "idm_cross_attention_small_kv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                     _F, _F, _P],
 }
 
 _lock = threading.Lock()

@@ -39,6 +39,13 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
 // 8 bf16 (one 16-byte vector) <-> 8 floats
 __device__ __forceinline__ void unpack8(const uint4& v, float* f) {
   const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&v);
@@ -56,6 +63,27 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) p[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
   return v;
+}
+
+// Mean and 1/std of one row of C bf16 values (C % 8 == 0), warp-wide:
+// one-pass fp32 statistics with the clamped variance of the JAX package.
+__device__ __forceinline__ void ln_row_stats(const bf16* row, int C, float eps,
+                                             float& mean, float& inv) {
+  const int lane = threadIdx.x & 31;
+  float s1 = 0.f, s2 = 0.f;
+  for (int c = lane * 8; c < C; c += 256) {
+    float f[8];
+    unpack8(*reinterpret_cast<const uint4*>(row + c), f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      s1 += f[i];
+      s2 += f[i] * f[i];
+    }
+  }
+  s1 = warp_sum(s1);
+  s2 = warp_sum(s2);
+  mean = s1 / C;
+  inv = rsqrtf(fmaxf(s2 / C - mean * mean, 0.f) + eps);
 }
 
 // Sets the dynamic shared-memory limit of `kernel` when it needs more than

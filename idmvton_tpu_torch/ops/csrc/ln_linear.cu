@@ -28,26 +28,6 @@ constexpr int BM = 64, BN = 128, BK = 32, THREADS = 256;
 constexpr int APAD = 8, BPAD = 8, EPAD = 4;
 constexpr int LDB = BN + BPAD, LDE = BN + EPAD;
 
-// Mean and 1/std of one row of C bf16 values (C % 8 == 0), warp-wide.
-__device__ __forceinline__ void row_stats(const bf16* row, int C, float eps,
-                                          float& mean, float& inv) {
-  const int lane = threadIdx.x & 31;
-  float s1 = 0.f, s2 = 0.f;
-  for (int c = lane * 8; c < C; c += 256) {
-    float f[8];
-    idm::unpack8(*reinterpret_cast<const uint4*>(row + c), f);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      s1 += f[i];
-      s2 += f[i] * f[i];
-    }
-  }
-  s1 = idm::warp_sum(s1);
-  s2 = idm::warp_sum(s2);
-  mean = s1 / C;
-  inv = rsqrtf(fmaxf(s2 / C - mean * mean, 0.f) + eps);
-}
-
 // Writes LN(row) (gamma, beta applied) as bf16 to dst; warp-wide.
 __device__ __forceinline__ void normalize_row(const bf16* row, bf16* dst,
                                               const float* gamma,
@@ -72,7 +52,7 @@ __global__ void layer_norm_kernel(const bf16* __restrict__ x,
   const long row = (long)blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
   if (row >= M) return;  // whole warp leaves together
   float mean, inv;
-  row_stats(x + row * C, C, eps, mean, inv);
+  idm::ln_row_stats(x + row * C, C, eps, mean, inv);
   normalize_row(x + row * C, out + row * C, gamma, beta, C, mean, inv);
 }
 
@@ -128,7 +108,7 @@ __global__ void __launch_bounds__(THREADS)
     bf16* dst = As + r * lda;
     if (row < M) {
       float mean, inv;
-      row_stats(x + (size_t)row * C, C, eps, mean, inv);
+      idm::ln_row_stats(x + (size_t)row * C, C, eps, mean, inv);
       normalize_row(x + (size_t)row * C, dst, gamma, beta, C, mean, inv);
     } else {
       for (int c = lane * 8; c < C; c += 256)

@@ -1,4 +1,5 @@
-"""Flash attention over the fused-QKV GEMM output, garment KV and CFG sink.
+"""Flash attention over the fused-QKV GEMM output, garment KV and CFG sink;
+small-KV cross-attention.
 
 Counterpart of ``idmvton_tpu/ops/pallas_attention.py::flash_attention_gemm``.
 ``flash_attention_gemm`` launches ``csrc/flash_attention_gemm.cu`` on CUDA
@@ -15,16 +16,23 @@ p = exp(min(s, 60)) with no running max -- exact softmax for every logit
 <= 60 (the clamp of the code, pallas_attention.py:244, not the 80 some of
 the JAX package's documents state); ``fixed_shift=False`` is the online-max
 softmax.
+
+``cross_attention_small_kv`` (``csrc/cross_attention_small_kv.cu``, the
+opt-in ``IDMVTON_CROSS_KERNEL=1`` branch of cross-attention) attends the
+to_q output over the fused to_kv output of the 77 text tokens and,
+separately, of the 16 IP tokens, in GEMM layouts end to end; its plain
+version is ``cross_attention_small_kv_torch``.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
 
 from idmvton_tpu_torch.ops import _build
-from idmvton_tpu_torch.ops.attention import attend
+from idmvton_tpu_torch.ops.attention import attend, softmax_
 
 _LANE = 128
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
@@ -99,3 +107,86 @@ def flash_attention_gemm_supported(qkv, heads: int) -> bool:
     d = inner // heads
     return (inner % _LANE == 0 and d <= _LANE and _LANE % d == 0
             and d in KERNEL_HEAD_DIMS)
+
+
+# ---------------------------------------------------------------------------
+# small-KV cross-attention (replaces pallas_attention.py::
+# cross_attention_small_kv, _cross_small_kernel)
+# ---------------------------------------------------------------------------
+
+
+def cross_attention_small_kv_torch(q, kv, kv_ip=None, *, heads: int,
+                                   scale: Optional[float] = None,
+                                   ip_scale: float = 1.0):
+    """Plain version (JAX ``_cross_small_xla``): per branch an fp32 softmax
+    of fp32 logits, probabilities cast to q's type for the PV product with
+    fp32 accumulation; the text and IP branch outputs are summed in fp32
+    (``out_text + ip_scale * out_ip``) and cast once. (The decoupled
+    IP-attention op casts each branch before the sum, so it is not this
+    function's plain version.)"""
+    b, n, hd = q.shape
+    d = hd // heads
+    scale = scale if scale is not None else d ** -0.5
+    qh = q.reshape(b, n, heads, d).float()
+
+    def branch(kvx):
+        s = kvx.shape[1]
+        k = kvx[..., :hd].reshape(b, s, heads, d).float()
+        v = kvx[..., hd:].reshape(b, s, heads, d)
+        logits = torch.einsum("bqhd,bkhd->bhqk", qh, k)
+        logits.mul_(scale)
+        p = softmax_(logits).to(q.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float())
+
+    out = branch(kv)
+    if kv_ip is not None:
+        out = out + ip_scale * branch(kv_ip)
+    return out.to(q.dtype).reshape(b, n, hd)
+
+
+def cross_attention_small_kv(q, kv, kv_ip=None, *, heads: int,
+                             scale: Optional[float] = None,
+                             ip_scale: float = 1.0):
+    """q (B, N, H*D) merged heads (the to_q output); kv (B, S_text, 2*H*D)
+    the fused to_kv output [K | V]; kv_ip (B, S_ip, 2*H*D) or None. All
+    bf16; returns (B, N, H*D) bf16."""
+    b, n, hd = q.shape
+    d = hd // heads
+    if hd != heads * d or d not in KERNEL_HEAD_DIMS or hd % _LANE:
+        raise ValueError(f"cross_attention_small_kv kernel: q "
+                         f"{tuple(q.shape)} with {heads} heads (H*D % 128 "
+                         f"== 0, head dim one of {KERNEL_HEAD_DIMS})")
+    for name, t in (("kv", kv), ("kv_ip", kv_ip)):
+        if t is not None and (t.dim() != 3 or t.shape[0] != b
+                              or t.shape[2] != 2 * hd or t.shape[1] < 1):
+            raise ValueError(f"{name} {tuple(t.shape)} does not match q "
+                             f"{tuple(q.shape)}")
+    scale = scale if scale is not None else d ** -0.5
+    out = torch.empty_like(q)
+    dev = q.device
+    _build.call("idm_cross_attention_small_kv",
+                _build.ptr(q, "q", torch.bfloat16),
+                _build.ptr(kv, "kv", torch.bfloat16, dev),
+                _build.ptr(kv_ip, "kv_ip", torch.bfloat16, dev),
+                _build.ptr(out, "out", torch.bfloat16),
+                b, n, heads, d, kv.shape[1],
+                0 if kv_ip is None else kv_ip.shape[1],
+                float(scale), float(ip_scale), _build.stream_ptr(dev))
+    cross_attention_small_kv.launches += 1
+    return out
+
+
+cross_attention_small_kv.launches = 0
+
+
+def cross_attention_small_kv_supported(inner: int, heads: int,
+                                       s_kv: int) -> bool:
+    """JAX ``cross_attention_small_kv_supported``: opt-in through
+    ``IDMVTON_CROSS_KERNEL=1`` (read at call time), H*D % 128 == 0, D
+    divides 128, at most 1024 context tokens; plus the kernel's 16-wide
+    head-dim MMA steps (D >= 16)."""
+    if os.environ.get("IDMVTON_CROSS_KERNEL", "0") != "1":
+        return False
+    d = inner // heads
+    return (inner % _LANE == 0 and d <= _LANE and _LANE % d == 0
+            and d in KERNEL_HEAD_DIMS and s_kv <= 1024)

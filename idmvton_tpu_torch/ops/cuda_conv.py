@@ -13,9 +13,15 @@ the serving path: an input of at least ``HBLOCK_MIN_BYTES`` per image takes
 ``conv3x3_hblock`` (the VAE's 1024x768 / 512x384 / 256x192 levels), a
 smaller one ``conv3x3`` (every UNet conv, the VAE's 128x96 level). The
 kernel takes bf16; the wrappers raise on anything else.
+
+The JAX package's opt-in ``IDMVTON_CONV_PADACC=1`` variant of the
+``conv3x3`` sites (``_conv3_kernel_padacc``) is a kernel of its own here,
+``conv3x3_padacc`` (``csrc/conv3x3_padacc.cu``), with its own count.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as F
@@ -96,3 +102,42 @@ def conv3x3_supported(x, w) -> bool:
 
 def conv3x3_hblock_supported(x, w) -> bool:
     return _shape_ok(x, w)
+
+
+def conv_padacc_enabled() -> bool:
+    """JAX ``pallas_conv._padacc``: ``IDMVTON_CONV_PADACC=1``, read at call
+    time, swaps the ``conv3x3`` sites to ``conv3x3_padacc``."""
+    return os.environ.get("IDMVTON_CONV_PADACC", "0") == "1"
+
+
+def conv3x3_padacc(x, w, b=None):
+    """The padded-accumulator variant (``csrc/conv3x3_padacc.cu``) of the
+    same conv: x (B,H,W,Cin) bf16, w (3,3,Cin,Cout) bf16, b (Cout,) or None.
+
+    As the TPU variant, it makes one explicit zero-padded copy of x and runs
+    GEMMs over whole padded rows, so no tap needs a halo predicate; each
+    (dy, dx) product is added into an fp32 accumulator shifted by 2 - dx
+    and only output columns [2, 2 + W) of each padded row are kept."""
+    bsz, h, wdt, cin = x.shape
+    cout = w.shape[-1]
+    if w.shape != (3, 3, cin, cout):
+        raise ValueError(f"conv3x3_padacc: x {tuple(x.shape)}, "
+                         f"w {tuple(w.shape)}")
+    if cin % 32 or cout % 8:
+        raise ValueError(f"conv3x3_padacc kernel needs Cin % 32 == 0 and "
+                         f"Cout % 8 == 0, got {cin}, {cout}")
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    out = torch.empty(bsz, h, wdt, cout, dtype=x.dtype, device=x.device)
+    dev = x.device
+    bias = None if b is None else b.float()
+    _build.call("idm_conv3x3_padacc",
+                _build.ptr(xp, "x", torch.bfloat16),
+                _build.ptr(w, "w", torch.bfloat16, dev),
+                _build.ptr(bias, "b", torch.float32, dev),
+                _build.ptr(out, "out", torch.bfloat16),
+                bsz, h, wdt, cin, cout, _build.stream_ptr(dev))
+    conv3x3_padacc.launches += 1
+    return out
+
+
+conv3x3_padacc.launches = 0

@@ -1,9 +1,10 @@
 """LayerNorm + GEMM, standalone LayerNorm and GroupNorm statistics.
 
 Counterpart of ``idmvton_tpu/ops/pallas_norm.py``. Each kernel wrapper here
-launches its CUDA kernel (``csrc/ln_linear.cu``, ``csrc/gn_stats.cu``) on
-CUDA tensors and raises on anything else (CPU tensors, types the kernel does
-not take: bf16 only, fp32 also for the GroupNorm statistics); the
+launches its CUDA kernel (``csrc/ln_linear.cu``, ``csrc/ln_linear_i8.cu``,
+``csrc/gn_stats.cu``) on CUDA tensors and raises on anything else (CPU
+tensors, types the kernel does not take: bf16 activations, int8 weights
+for the W8A8 kernel, fp32 also for the GroupNorm statistics); the
 ``*_torch`` function beside it is its plain version (the JAX package's XLA
 formula), which the sites take on CPU tensors and which the tests and
 ``chip_smoke.py`` compare against. The ``*_supported`` predicates are shape
@@ -90,7 +91,8 @@ def ln_linear(x, gamma, beta, w, b=None, *, eps: float = 1e-5,
 
     x (..., C) bf16; gamma/beta (C,) fp32; w (C, N) bf16, or (C, 2N)
     laid out [value | gate] for ``geglu``; b (N,) or (2N,) fp32 or None.
-    Returns (..., N) bf16."""
+    Returns (..., N) bf16. The sites send an int8-quantized projection to
+    ``ln_linear_i8`` instead (``models.attention._ln_proj``)."""
     c = x.shape[-1]
     m = x.numel() // c
     n_out = w.shape[1] // (2 if geglu else 1)
@@ -125,6 +127,73 @@ def ln_linear_supported(x, w, *, geglu: bool = False) -> bool:
     n_out = w.shape[1] // two
     return (c % _LANE == 0 and n_out % _LANE == 0
             and w.shape[1] == two * n_out)
+
+
+# ---------------------------------------------------------------------------
+# W8A8 int8 LayerNorm + GEMM (+ GEGLU) (replaces pallas_norm.py::ln_linear
+# on a kernel_i8 projection, _ln_mm_kernel_i8)
+# ---------------------------------------------------------------------------
+
+
+def ln_linear_i8_torch(x, gamma, beta, w_i8, w_scale, b=None, *,
+                       eps: float = 1e-5, geglu: bool = False):
+    """Plain version of the W8A8 kernel (the Pallas kernel's math): fp32
+    LayerNorm; per-row scale ``rs = max(row absmax, 1e-8) / 127``; codes
+    ``clip(round(xn * (1 / rs)), -127, 127)``; an exact integer product
+    with the int8 weight (float64: the sums stay below 2^53); then
+    ``acc * rs * w_scale + b`` in fp32, and value * gelu(gate) for
+    ``geglu``."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    mean2 = xf.square().mean(-1, keepdim=True)
+    var = (mean2 - mean.square()).clamp_min(0.0)
+    xn = (xf - mean) * torch.rsqrt(var + eps) * gamma.float() + beta.float()
+    rs = xn.abs().amax(-1, keepdim=True).clamp_min(1e-8) / 127.0
+    q = torch.round(xn * (1.0 / rs)).clamp_(-127.0, 127.0)
+    acc = torch.matmul(q.double(), w_i8.double()).float()
+    y = acc * rs * w_scale.float()
+    if b is not None:
+        y = y + b.float()
+    if geglu:
+        val, gate = y.chunk(2, dim=-1)
+        y = val * F.gelu(gate)
+    return y.to(x.dtype)
+
+
+def ln_linear_i8(x, gamma, beta, w_i8, w_scale, b=None, *,
+                 eps: float = 1e-5, geglu: bool = False):
+    """Kernel version of ``ln_linear_i8_torch``: x (..., C) bf16;
+    gamma/beta (C,) fp32; w_i8 (C, N) or (C, 2N) int8; w_scale and b
+    (N,) or (2N,) fp32 (b may be None). Returns (..., N) bf16."""
+    c = x.shape[-1]
+    m = x.numel() // c
+    n_out = w_i8.shape[1] // (2 if geglu else 1)
+    if (w_i8.shape[0] != c or tuple(w_scale.shape) != (w_i8.shape[1],)
+            or (b is not None and tuple(b.shape) != (w_i8.shape[1],))):
+        raise ValueError(f"ln_linear_i8: x {tuple(x.shape)}, w_i8 "
+                         f"{tuple(w_i8.shape)}, w_scale "
+                         f"{tuple(w_scale.shape)}, b "
+                         f"{None if b is None else tuple(b.shape)}")
+    if c % 64 or n_out % _LANE:
+        raise ValueError(f"ln_linear_i8 kernel needs C % 64 == 0 and "
+                         f"N % 128 == 0, got C={c}, N={n_out}")
+    out = torch.empty(*x.shape[:-1], n_out, dtype=x.dtype, device=x.device)
+    dev = x.device
+    bias = None if b is None else b.float()
+    _build.call("idm_ln_linear_i8",
+                _build.ptr(x, "x", torch.bfloat16),
+                _build.ptr(gamma, "gamma", torch.float32, dev),
+                _build.ptr(beta, "beta", torch.float32, dev),
+                _build.ptr(w_i8, "w_i8", torch.int8, dev),
+                _build.ptr(w_scale, "w_scale", torch.float32, dev),
+                _build.ptr(bias, "b", torch.float32, dev),
+                _build.ptr(out, "out", torch.bfloat16),
+                m, c, n_out, int(geglu), float(eps), _build.stream_ptr(dev))
+    ln_linear_i8.launches += 1
+    return out
+
+
+ln_linear_i8.launches = 0
 
 
 # ---------------------------------------------------------------------------

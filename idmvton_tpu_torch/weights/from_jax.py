@@ -6,7 +6,10 @@ side -- so this module needs no JAX. The port's modules store the JAX
 layouts (linear ``(in, out)``, conv HWIO, fused ``to_qkv`` / ``to_kv`` /
 ``to_kv_ip``) under the JAX key names, so every leaf copies as it is, cast
 to the parameter's type. Every parameter of the module must be filled, and
-every leaf of the tree must find its parameter.
+every leaf of the tree must find its parameter. A model quantized
+beforehand (``models.attention.quantize_unet_linears_int8``) takes a JAX tree
+quantized the same way: its ``kernel_i8`` / ``kernel_scale`` leaves fill
+the ``QuantLinear`` parameters as they are, under the same checks.
 """
 
 from __future__ import annotations

@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the
 card, at small shapes with every edge the serving path can hit (ragged row
-and key tiles, GEGLU, uncond rows, sink tokens, both softmax paths).
+and key tiles, GEGLU, uncond rows, sink tokens, both softmax paths; for the
+opt-in variants: int8 codes at every C, short and chunked contexts, padded
+rows at both ends of an image).
 
 Marked ``cuda``: each test skips without a card. This file imports no JAX,
 so it also runs on a host that has none:
@@ -10,6 +12,9 @@ Tolerances: both sides take the same bf16 inputs and accumulate in fp32;
 they differ in summation order and in where bf16 rounds (the plain
 versions round some intermediates the kernels keep in fp32), so outputs
 agree to a few bf16 ulps: max |kernel - plain| <= 2e-2 * max |plain|.
+The W8A8 kernel and its plain version sum the same int8 products exactly;
+they differ only where an fp32 LayerNorm rounding flips one code, far
+inside the same bound.
 The GroupNorm statistics are fp32 sums in another order (deterministic,
 no atomics): max error <= 1e-5 * max |sum of squares|.
 """
@@ -125,6 +130,79 @@ def test_flash_attention_gemm_kernel(dev, d, garment, uncond, sink, fixed):
     assert _rel_err(got, want) <= BF16_TOL
 
 
+@pytest.mark.parametrize("m,c,n,geglu,bias", [
+    (200, 128, 128, False, False), (77, 256, 128, True, False),
+    (130, 640, 128, True, True), (65, 1280, 128, False, True),
+    (3, 1280, 256, True, False)])
+def test_ln_linear_i8_kernel(dev, m, c, n, geglu, bias):
+    from idmvton_tpu_torch.models.attention import _ln_proj
+    from idmvton_tpu_torch.models.layers import (
+        Linear, Norm, quantize_linear_int8,
+    )
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = _randn(g, 2, m, c, dev=dev, scale=3.0) + 1.0
+    gamma = _randn(g, c, dev=dev, dtype=torch.float32) * 0.2 + 1.0
+    beta = _randn(g, c, dev=dev, dtype=torch.float32) * 0.1
+    lin = Linear(c, (2 if geglu else 1) * n, bias=bias, dtype=torch.bfloat16,
+                 device=dev)
+    lin.kernel.copy_(_randn(g, *lin.kernel.shape, dev=dev, scale=c ** -0.5))
+    if bias:
+        lin.bias.copy_(_randn(g, *lin.bias.shape, dev=dev))
+    q = quantize_linear_int8(lin)
+    norm = Norm(c, device=dev)
+    norm.scale.copy_(gamma)
+    norm.bias.copy_(beta)
+    before = cuda_norm.ln_linear_i8.launches
+    got = cuda_norm.ln_linear_i8(x, gamma, beta, q.kernel_i8, q.kernel_scale,
+                                 q.bias, geglu=geglu)
+    # a fused LN site dispatches the int8 projection to the same kernel
+    got2 = _ln_proj(x, norm, q, geglu=geglu, impl="cuda")
+    want = cuda_norm.ln_linear_i8_torch(x, gamma, beta, q.kernel_i8,
+                                        q.kernel_scale, q.bias, geglu=geglu)
+    torch.cuda.synchronize()
+    assert got.shape == (2, m, n)
+    assert cuda_norm.ln_linear_i8.launches == before + 2
+    assert torch.equal(got, got2)
+    assert _rel_err(got, want) <= BF16_TOL
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("s_text,s_ip", [(77, 16), (8, 0), (300, 90)])
+def test_cross_attention_small_kv_kernel(dev, d, s_text, s_ip):
+    g = torch.Generator(device=dev).manual_seed(6)
+    b, n, heads = 2, 200, 256 // d
+    q = _randn(g, b, n, heads * d, dev=dev, scale=2.0)
+    kv = _randn(g, b, s_text, 2 * heads * d, dev=dev, scale=2.0)
+    kv_ip = _randn(g, b, s_ip, 2 * heads * d, dev=dev, scale=2.0) \
+        if s_ip else None
+    before = cuda_attention.cross_attention_small_kv.launches
+    got = cuda_attention.cross_attention_small_kv(q, kv, kv_ip, heads=heads,
+                                                  ip_scale=0.7)
+    want = cuda_attention.cross_attention_small_kv_torch(
+        q, kv, kv_ip, heads=heads, ip_scale=0.7)
+    torch.cuda.synchronize()
+    assert got.shape == (b, n, heads * d)
+    assert cuda_attention.cross_attention_small_kv.launches == before + 1
+    assert _rel_err(got, want) <= BF16_TOL
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,bias", [
+    (1, 16, 24, 128, 256, True), (1, 9, 96, 320, 640, False),
+    (2, 7, 24, 1280, 320, True), (1, 5, 96, 640, 128, True),
+    (3, 12, 10, 256, 200, False)])
+def test_conv3x3_padacc_kernel(dev, b, h, w, cin, cout, bias):
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = _randn(g, b, h, w, cin, dev=dev)
+    k = _randn(g, 3, 3, cin, cout, dev=dev, scale=(9 * cin) ** -0.5)
+    bb = _randn(g, cout, dev=dev) if bias else None
+    before = cuda_conv.conv3x3_padacc.launches
+    got = cuda_conv.conv3x3_padacc(x, k, bb)
+    want = cuda_conv.conv3x3_torch(x, k, bb)
+    torch.cuda.synchronize()
+    assert got.shape == (b, h, w, cout)
+    assert cuda_conv.conv3x3_padacc.launches == before + 1
+    assert _rel_err(got, want) <= BF16_TOL
+
 
 def test_kernels_refuse_other_types(dev):
     """The sites' predicates are shape conditions only, so a CUDA tensor of
@@ -145,3 +223,12 @@ def test_kernels_refuse_other_types(dev):
             torch.zeros(2, 16, 384, device=dev), heads=2)
     with pytest.raises(ValueError, match="float32"):
         cuda_norm.gn_spatial_stats(x.half())
+    with pytest.raises(ValueError, match="int8"):
+        cuda_norm.ln_linear_i8(x.bfloat16(), g, g, w.bfloat16(), g)
+    with pytest.raises(ValueError, match="bfloat16"):
+        cuda_attention.cross_attention_small_kv(
+            torch.zeros(2, 16, 128, device=dev),
+            torch.zeros(2, 77, 256, device=dev), heads=2)
+    with pytest.raises(ValueError, match="bfloat16"):
+        cuda_conv.conv3x3_padacc(x.reshape(2, 8, 8, 128),
+                                 torch.zeros(3, 3, 128, 128, device=dev))

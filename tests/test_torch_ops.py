@@ -172,6 +172,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                       3, 3, 128, 128).contiguous()),
         lambda: cuda_attention.flash_attention_gemm(
             torch.zeros(2, 16, 384, dtype=torch.bfloat16), heads=2),
+        lambda: cuda_norm.ln_linear_i8(x, g, g, w.to(torch.int8), g),
+        lambda: cuda_attention.cross_attention_small_kv(
+            x, torch.zeros(2, 77, 256, dtype=torch.bfloat16), heads=2),
+        lambda: cuda_conv.conv3x3_padacc(x.reshape(2, 4, 4, 128),
+                                         w.reshape(1, 1, 128, 128).expand(
+                                             3, 3, 128, 128).contiguous()),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
