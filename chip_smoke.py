@@ -9,22 +9,33 @@ failure:
 1. require CUDA; print the card's name and power limit (nvidia-smi) and
    set the TF32 flags off (fp32 products in full fp32 on both sides);
 2. build the kernels from ``idmvton_tpu_torch/ops/csrc`` with nvcc;
-3. hold each of the nine kernel entry points against its plain PyTorch
-   version at the serving path's shapes (bf16), and time both;
+3. hold each of the eleven kernel entry points against its plain PyTorch
+   version at the shapes its path gives it (bf16), and time the kernel,
+   the plain version and, where one PyTorch call computes the same
+   function, that call (``library_ms``; the port never makes it) beside
+   the kernel's bound (its bytes over the card's memory rate or its
+   operations over the peak rate of their type, the larger);
 4. one full-width denoise step (GarmentNet, TryonNet, CFG, DDPM step) with
    ``impl="cuda"`` against ``impl="torch"`` on the same inputs;
 5. serve 2 requests through ``TryonPipeline.stepwise_generate`` at
    768x1024, batch 2, 30 steps, CFG 2.0, garment_cache="every_step", on
    the full SDXL try-on stack with seeded random weights (the bf16 path);
-6. the opt-in variants of the same path: quantize both UNets for W8A8
+6. the inference CLI's batch loop (``cli.infer.run``, with its
+   BatchLoader, tokenizers and ip_pixels resize) over one in-memory batch
+   of 2 synthetic VITON-HD samples on the same stack: uint8 images, the
+   bf16 path's kernels and ``flash_attention`` never;
+7. the opt-in variants of the same path: quantize both UNets for W8A8
    serving (``IDMVTON_GEMM_INT8=2`` in the JAX bench: TryonNet's to_qkv and
    ff.proj_in, GarmentNet's ff.proj_in), set ``IDMVTON_CROSS_KERNEL=1`` and
    ``IDMVTON_CONV_PADACC=1``, hold one full-width step with ``impl="cuda"``
    against ``impl="torch"``, and serve 2 more requests (the variant path);
+8. the CLI's ``--tiny`` mode (``cli.infer.load_models``, then ``run`` at
+   768x1024, batch 2, 30 steps): one tiny step with ``impl="cuda"``
+   against ``impl="torch"``, then a batch, whose 64-wide level runs
+   ``flash_attention`` (kernel #9) 10 times a step;
    the launch counters, zeroed before each serving phase and read after
-   it, show that each path launched every kernel it runs (the variant
-   path: the three variant kernels and the five it shares) and no other;
-7. print a JSON line with each kernel's result, then the device line.
+   it, show that each path launched every kernel it runs and no other;
+9. print a JSON line with each kernel's result, then the device line.
 """
 
 from __future__ import annotations
@@ -56,13 +67,36 @@ GN_TOL = 5e-5
 # moves under a fault; the mean bound catches a 5% output error of the W8A8
 # kernel at every site (2.77e-2) and a lost IP branch (0.23).
 STEP_TOLS = {"noise_pred": (8e-2, 2.5e-2), "latent": (5e-2, None)}
+# The tiny step (UNetConfig.tiny at 768x1024), impl="cuda" against "torch",
+# read max rel 2.40e-2, mean rel 2.12e-2 on the noise prediction (latent
+# 7.8e-3) on an H100; the bounds take the full-width ratios: 2x the max and
+# 1.4x the mean. scripts/torch_tiny_step_probe.py planted faults where
+# flash_attention launches kernel #9 (clean 3.26e-2 / 2.26e-2 from its
+# seed): output x1.05 read mean rel 3.47e-2 (caught), x1.02 2.53e-2 (missed),
+# the garment KV dropped 0.47 (caught); the max stayed under its bound for
+# both scalings.
+TINY_STEP_TOLS = {"noise_pred": (5e-2, 3e-2), "latent": (5e-2, None)}
+# UNetConfig.tiny: widths (32, 64, 128), transformer depth (0, 1, 2), head
+# dim 16, 2 layers a block. The 64-wide level has 4 heads (H*D = 64, not a
+# multiple of 128, so not flash_attention_gemm) and 2 down + 3 up blocks a
+# UNet; at 768x1024 it holds 64x48 = 3072 tokens, so GarmentNet attends over
+# 3072 keys and TryonNet over [own | garment] = 6144, both past the 256-key
+# cutoff: 5 + 5 flash_attention launches a denoise step. The 128-wide level
+# and the mid block (8 heads, H*D = 128) take flash_attention_gemm.
+TINY_FLASH_PER_STEP = 10
 # the kernels each serving path must launch, and no others
+BF16_PATH = ("ln_linear", "fused_layer_norm", "gn_spatial_stats", "conv3x3",
+             "conv3x3_hblock", "flash_attention_gemm")
 PATH_KERNELS = {
-    "bf16": ("ln_linear", "fused_layer_norm", "gn_spatial_stats", "conv3x3",
-             "conv3x3_hblock", "flash_attention_gemm"),
+    "bf16": BF16_PATH,
+    "cli": BF16_PATH,
     "variant": ("ln_linear", "fused_layer_norm", "gn_spatial_stats",
                 "conv3x3_hblock", "flash_attention_gemm", "ln_linear_i8",
                 "cross_attention_small_kv", "conv3x3_padacc"),
+    # read on an H100: the tiny stack at 768x1024 also reaches all six (the
+    # 128-wide level and mid block take ln_linear and flash_attention_gemm,
+    # one VAE conv takes conv3x3_hblock) besides flash_attention
+    "tiny": BF16_PATH + ("flash_attention",),
 }
 
 
@@ -99,12 +133,25 @@ def errors(got, want):
     return err, err / max(float(want.abs().max()), 1e-6)
 
 
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense, at the
+# 700 W limit): HBM bytes/s and operations/s by type. A case's bound is the
+# larger of its bytes (each input read once, the output written once) over
+# HBM_BPS and its operations over the peak of their type.
+HBM_BPS = 3.35e12
+PEAK = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+
+
 def kernel_cases(dev):
-    """(name, source, replaces, [(label, kernel_fn, plain_fn, tol_kind,
-    extra)]) at the shapes the serving path gives each kernel; ``extra``
-    may name another function to hold the kernel against without a gate
-    (``"vs"``) or to time beside it (``"time"``)."""
+    """(name, source, replaces, library, [case]) at the shapes the serving
+    and tiny paths give each kernel. A case is a dict: ``label``, ``kern``,
+    ``plain``, ``ins`` (the input tensors, for the bytes), ``ops`` and
+    ``rate`` (its operations and their type), ``tol`` ("bf16" or "gn"),
+    ``library`` (one PyTorch call computing the same function on the same
+    inputs, timed beside the kernel and used nowhere in the port, or None)
+    and optionally ``vs`` (another function to hold the kernel against
+    without a gate) or ``time`` (one to time beside it)."""
     import torch
+    import torch.nn.functional as F
     from idmvton_tpu_torch.ops import cuda_attention as A
     from idmvton_tpu_torch.ops import cuda_conv as CV
     from idmvton_tpu_torch.ops import cuda_norm as N
@@ -115,16 +162,21 @@ def kernel_cases(dev):
     def rn(*shape, scale=1.0, dtype=torch.bfloat16):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
 
+    def case(label, kern, plain, ins, ops, rate="bf16", tol="bf16",
+             library=None, **extra):
+        return dict(label=label, kern=kern, plain=plain, ins=ins, ops=ops,
+                    rate=rate, tol=tol, library=library, **extra)
+
     def ln_case(m_shape, c, n, geglu, bias):
         x = rn(*m_shape, c)
         gam, bet = rn(c, dtype=torch.float32) * 0.1 + 1, rn(c, dtype=torch.float32) * 0.1
         w = rn(c, n * (2 if geglu else 1), scale=c ** -0.5)
         b = rn(w.shape[1], dtype=torch.float32) * 0.1 if bias else None
-        return (f"x{tuple(m_shape) + (c,)} w{tuple(w.shape)}"
-                f"{' geglu' if geglu else ''}",
-                lambda: N.ln_linear(x, gam, bet, w, b, geglu=geglu),
-                lambda: N.ln_linear_torch(x, gam, bet, w, b, geglu=geglu),
-                "bf16", {})
+        return case(f"x{tuple(m_shape) + (c,)} w{tuple(w.shape)}"
+                    f"{' geglu' if geglu else ''}",
+                    lambda: N.ln_linear(x, gam, bet, w, b, geglu=geglu),
+                    lambda: N.ln_linear_torch(x, gam, bet, w, b, geglu=geglu),
+                    [x, gam, bet, w, b], 2 * x.numel() * w.shape[1])
 
     def ln_i8_case(m_shape, c, n, geglu, bias):
         x = rn(*m_shape, c)
@@ -132,92 +184,157 @@ def kernel_cases(dev):
         w = rn(c, n * (2 if geglu else 1), scale=c ** -0.5)
         w_i8, w_scale = quantize_kernel_int8(w)
         b = rn(w.shape[1], dtype=torch.float32) * 0.1 if bias else None
-        return (f"x{tuple(m_shape) + (c,)} w_i8{tuple(w.shape)}"
-                f"{' geglu' if geglu else ''}",
-                lambda: N.ln_linear_i8(x, gam, bet, w_i8, w_scale, b,
-                                       geglu=geglu),
-                lambda: N.ln_linear_i8_torch(x, gam, bet, w_i8, w_scale, b,
-                                             geglu=geglu),
-                "bf16",
-                {"vs": ("bf16 ln_linear_torch",
+        return case(f"x{tuple(m_shape) + (c,)} w_i8{tuple(w.shape)}"
+                    f"{' geglu' if geglu else ''}",
+                    lambda: N.ln_linear_i8(x, gam, bet, w_i8, w_scale, b,
+                                           geglu=geglu),
+                    lambda: N.ln_linear_i8_torch(x, gam, bet, w_i8, w_scale,
+                                                 b, geglu=geglu),
+                    [x, gam, bet, w_i8, w_scale, b],
+                    2 * x.numel() * w.shape[1], rate="int8",
+                    vs=("bf16 ln_linear_torch",
                         lambda: N.ln_linear_torch(x, gam, bet, w, b,
-                                                  geglu=geglu))})
+                                                  geglu=geglu)))
 
     def cross_case(b, n, heads, ip):
         hd = heads * 64
         q, kv = rn(b, n, hd), rn(b, 77, 2 * hd)
         kv_ip = rn(b, 16, 2 * hd) if ip else None
-        return (f"q{(b, n, hd)} heads {heads} kv{tuple(kv.shape)}"
-                f"{f' kv_ip{tuple(kv_ip.shape)}' if ip else ''}",
-                lambda: A.cross_attention_small_kv(q, kv, kv_ip, heads=heads),
-                lambda: A.cross_attention_small_kv_torch(q, kv, kv_ip,
-                                                         heads=heads),
-                "bf16", {})
+        ctx = 77 + (16 if ip else 0)
+        return case(f"q{(b, n, hd)} heads {heads} kv{tuple(kv.shape)}"
+                    f"{f' kv_ip{tuple(kv_ip.shape)}' if ip else ''}",
+                    lambda: A.cross_attention_small_kv(q, kv, kv_ip,
+                                                       heads=heads),
+                    lambda: A.cross_attention_small_kv_torch(q, kv, kv_ip,
+                                                             heads=heads),
+                    [q, kv, kv_ip], 4 * b * n * hd * ctx)
 
     def lnorm_case(shape):
         x = rn(*shape)
         s, b = rn(shape[-1], dtype=torch.float32), rn(shape[-1], dtype=torch.float32)
-        return (f"x{shape}", lambda: N.fused_layer_norm(x, s, b),
-                lambda: N.layer_norm_torch(x, s, b), "bf16", {})
+        s16, b16 = s.to(x.dtype), b.to(x.dtype)
+        return case(f"x{shape}", lambda: N.fused_layer_norm(x, s, b),
+                    lambda: N.layer_norm_torch(x, s, b), [x, s, b],
+                    8 * x.numel(), rate="fp32",
+                    library=lambda: F.layer_norm(x, (shape[-1],), s16, b16,
+                                                 1e-5))
 
     def gn_case(shape):
         x = rn(*shape) + 0.2
-        return (f"x{shape}", lambda: N.gn_spatial_stats(x),
-                lambda: N.gn_spatial_stats_torch(x), "gn", {})
+        return case(f"x{shape}", lambda: N.gn_spatial_stats(x),
+                    lambda: N.gn_spatial_stats_torch(x), [x],
+                    3 * x.numel(), rate="fp32", tol="gn")
 
     def conv_case(fn, b, h, w, cin, cout):
         x = rn(b, h, w, cin)
         k = rn(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
         bias = rn(cout) * 0.1
+        xc = x.permute(0, 3, 1, 2)     # channels_last NCHW views
+        kc = k.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
         extra = ({"time": ("conv3x3", lambda: CV.conv3x3(x, k, bias))}
                  if fn is CV.conv3x3_padacc else {})
-        return (f"x{(b, h, w, cin)} -> {cout}", lambda: fn(x, k, bias),
-                lambda: CV.conv3x3_torch(x, k, bias), "bf16", extra)
+        return case(f"x{(b, h, w, cin)} -> {cout}", lambda: fn(x, k, bias),
+                    lambda: CV.conv3x3_torch(x, k, bias), [x, k, bias],
+                    2 * b * h * w * 9 * cin * cout,
+                    library=lambda: F.conv2d(xc, kc, bias, padding=1),
+                    **extra)
 
-    def flash_case(b, n, heads, garment, uncond):
-        hd = heads * 64
+    def bhsd(t):
+        return t.transpose(1, 2).contiguous()
+
+    def flash_gemm_case(b, n, heads, garment, uncond):
+        hd, d = heads * 64, 64
         qkv = rn(b, n, 3 * hd)
         kv = rn(b - uncond, n, 2 * hd) if garment else None
-        return (f"qkv{(b, n, 3 * hd)} heads {heads}"
-                f"{f' garment M={n} uncond_rows={uncond}' if garment else ''}",
-                lambda: A.flash_attention_gemm(qkv, kv, heads=heads,
-                                               uncond_rows=uncond),
-                lambda: A.flash_attention_gemm_torch(qkv, kv, heads=heads,
-                                                     uncond_rows=uncond),
-                "bf16", {})
+        q, k, v = (bhsd(qkv[..., i * hd:(i + 1) * hd].reshape(b, n, heads, d))
+                   for i in range(3))
+        keys = b * n
+        if garment:   # the uncond rows' garment KV is zeros (analytic sink)
+            kvz = torch.cat([kv.new_zeros(uncond, n, 2 * hd), kv])
+            k = torch.cat([k, bhsd(kvz[..., :hd].reshape(b, n, heads, d))], 2)
+            v = torch.cat([v, bhsd(kvz[..., hd:].reshape(b, n, heads, d))], 2)
+            keys += (b - uncond) * n
+        return case(f"qkv{(b, n, 3 * hd)} heads {heads}"
+                    f"{f' garment M={n} uncond_rows={uncond}' if garment else ''}",
+                    lambda: A.flash_attention_gemm(qkv, kv, heads=heads,
+                                                   uncond_rows=uncond),
+                    lambda: A.flash_attention_gemm_torch(qkv, kv, heads=heads,
+                                                         uncond_rows=uncond),
+                    [qkv, kv], 4 * heads * d * n * keys,
+                    library=lambda: F.scaled_dot_product_attention(q, k, v))
+
+    def flash_case(b, n, heads, d, m):
+        """The split-heads views of a to_qkv output (row stride 3*H*D) over
+        [own | m garment keys] (m = 0: self-attention), as SelfAttention
+        passes them."""
+        hd = heads * d
+        qkv = rn(b, n, 3 * hd)
+        q, k, v = (qkv[..., i * hd:(i + 1) * hd].reshape(b, n, heads, d)
+                   for i in range(3))
+        if m:
+            kg, vg = rn(b, m, heads, d), rn(b, m, heads, d)
+            kern = lambda: A.flash_attention_concat_kv(q, k, v, kg, vg)
+            plain = lambda: A.flash_attention_concat_kv_torch(q, k, v, kg, vg)
+            ins = [qkv, kg, vg]
+            kt, vt = bhsd(torch.cat([k, kg], 1)), bhsd(torch.cat([v, vg], 1))
+        else:
+            kern = lambda: A.flash_attention(q, k, v)
+            plain = lambda: A.flash_attention_torch(q, k, v)
+            ins, kt, vt = [qkv], bhsd(k), bhsd(v)
+        qt = bhsd(q)
+        return case(f"q{(b, n, heads, d)} over {n + m} keys"
+                    f"{' (concat KV)' if m else ''}", kern, plain, ins,
+                    4 * b * heads * n * (n + m) * d,
+                    library=lambda: F.scaled_dot_product_attention(qt, kt, vt))
+
+    def fused_case(b, st, heads, d, s_own):
+        qkv = rn(b, st, 3, heads, d)
+        qt, kt, vt = (bhsd(qkv[:, :s_own if i == 0 else st, i])
+                      for i in range(3))
+        return case(f"qkv{(b, st, 3, heads, d)} s_own {s_own}",
+                    lambda: A.flash_attention_fused_qkv(qkv, s_own),
+                    lambda: A.flash_attention_fused_qkv_torch(qkv, s_own),
+                    [qkv], 4 * b * heads * s_own * st * d,
+                    library=lambda: F.scaled_dot_product_attention(qt, kt, vt))
 
     csrc = "idmvton_tpu_torch/ops/csrc/"
+    sdpa = "F.scaled_dot_product_attention"
     return [
         ("ln_linear", csrc + "ln_linear.cu",
-         "idmvton_tpu/ops/pallas_norm.py:131", [
+         "idmvton_tpu/ops/pallas_norm.py:131",
+         "none: no one PyTorch call fuses LayerNorm into a GEMM", [
              ln_case((4, 3072), 640, 1920, False, False),
              ln_case((4, 768), 1280, 1280, False, False),
              ln_case((4, 3072), 640, 2560, True, True),
              ln_case((4, 768), 1280, 5120, True, True)]),
         ("fused_layer_norm", csrc + "ln_linear.cu",
-         "idmvton_tpu/ops/pallas_norm.py:26", [
+         "idmvton_tpu/ops/pallas_norm.py:26", "F.layer_norm", [
              lnorm_case((2, 3072, 640)), lnorm_case((2, 768, 1280))]),
         ("gn_spatial_stats", csrc + "gn_stats.cu",
-         "idmvton_tpu/ops/pallas_norm.py:575", [
+         "idmvton_tpu/ops/pallas_norm.py:575",
+         "none: no PyTorch call returns GroupNorm's per-channel sums", [
              gn_case((4, 128, 96, 320)), gn_case((4, 32, 24, 2560)),
              gn_case((6, 1024, 768, 128))]),
         ("conv3x3", csrc + "conv3x3.cu",
-         "idmvton_tpu/ops/pallas_conv.py:34", [
+         "idmvton_tpu/ops/pallas_conv.py:34", "F.conv2d (cuDNN)", [
              conv_case(CV.conv3x3, 4, 128, 96, 320, 320),
              conv_case(CV.conv3x3, 4, 64, 48, 640, 640),
              conv_case(CV.conv3x3, 4, 32, 24, 1280, 1280),
              conv_case(CV.conv3x3, 4, 128, 96, 960, 320)]),
         ("conv3x3_hblock", csrc + "conv3x3.cu",
-         "idmvton_tpu/ops/pallas_conv.py:187", [
+         "idmvton_tpu/ops/pallas_conv.py:187", "F.conv2d (cuDNN)", [
              conv_case(CV.conv3x3_hblock, 6, 1024, 768, 128, 128),
              conv_case(CV.conv3x3_hblock, 2, 512, 384, 512, 256)]),
         ("flash_attention_gemm", csrc + "flash_attention_gemm.cu",
-         "idmvton_tpu/ops/pallas_attention.py:356", [
-             flash_case(4, 3072, 10, True, 2),
-             flash_case(4, 768, 20, True, 2),
-             flash_case(2, 3072, 10, False, 0)]),
+         "idmvton_tpu/ops/pallas_attention.py:356", sdpa, [
+             flash_gemm_case(4, 3072, 10, True, 2),
+             flash_gemm_case(4, 768, 20, True, 2),
+             flash_gemm_case(2, 3072, 10, False, 0)]),
         ("ln_linear_i8", csrc + "ln_linear_i8.cu",
-         "idmvton_tpu/ops/pallas_norm.py:380", [
+         "idmvton_tpu/ops/pallas_norm.py:380",
+         "none: no PyTorch call fuses LayerNorm, int8 quantization and an "
+         "int8 GEMM", [
              ln_i8_case((4, 3072), 640, 1920, False, False),
              ln_i8_case((4, 768), 1280, 3840, False, False),
              ln_i8_case((4, 3072), 640, 2560, True, True),
@@ -225,39 +342,66 @@ def kernel_cases(dev):
              ln_i8_case((2, 3072), 640, 2560, True, True),
              ln_i8_case((2, 768), 1280, 5120, True, True)]),
         ("cross_attention_small_kv", csrc + "cross_attention_small_kv.cu",
-         "idmvton_tpu/ops/pallas_attention.py:847", [
+         "idmvton_tpu/ops/pallas_attention.py:847",
+         "none: two independently normalized softmaxes summed are two "
+         "attention calls", [
              cross_case(4, 3072, 10, True), cross_case(4, 768, 20, True),
              cross_case(2, 3072, 10, False)]),
         ("conv3x3_padacc", csrc + "conv3x3_padacc.cu",
-         "idmvton_tpu/ops/pallas_conv.py:67", [
+         "idmvton_tpu/ops/pallas_conv.py:67", "F.conv2d (cuDNN)", [
              conv_case(CV.conv3x3_padacc, 4, 128, 96, 320, 320),
              conv_case(CV.conv3x3_padacc, 4, 64, 48, 640, 640),
              conv_case(CV.conv3x3_padacc, 4, 32, 24, 1280, 1280),
              conv_case(CV.conv3x3_padacc, 4, 128, 96, 960, 320),
              conv_case(CV.conv3x3_padacc, 6, 128, 96, 512, 512)]),
+        ("flash_attention", csrc + "flash_attention.cu",
+         "idmvton_tpu/ops/pallas_attention.py:58", sdpa, [
+             flash_case(4, 3072, 4, 16, 3072),   # tiny TryonNet, 64-wide
+             flash_case(2, 3072, 4, 16, 0),      # tiny GarmentNet, 64-wide
+             flash_case(4, 3072, 10, 64, 3072)]),  # SDXL width
+        ("flash_attention_fused_qkv", csrc + "flash_attention.cu",
+         "idmvton_tpu/ops/pallas_attention.py:743", sdpa, [
+             fused_case(4, 6144, 4, 16, 3072),
+             fused_case(4, 6144, 10, 64, 3072)]),
     ]
+
+
+def nbytes(*ts) -> int:
+    import torch
+    total = 0
+    for t in ts:
+        if isinstance(t, (tuple, list)):
+            total += nbytes(*t)
+        elif isinstance(t, torch.Tensor):
+            total += t.numel() * t.element_size()
+    return total
 
 
 def check_kernels(dev):
     import torch
     results = {}
-    for name, source, replaces, cases in kernel_cases(dev):
-        worst_abs, worst_rel, ms, plain_ms = 0.0, 0.0, 0.0, 0.0
+    for name, source, replaces, library, cases in kernel_cases(dev):
+        worst_abs, worst_rel = 0.0, 0.0
+        ms = plain_ms = bound_ms = bytes_bound_ms = 0.0
+        lib_ms = 0.0 if cases[0]["library"] is not None else None
         extra_ms = {}
-        for label, kern, plain, kind, extra in cases:
+        for c in cases:
+            kern, plain = c["kern"], c["plain"]
             got, want = kern(), plain()
             torch.cuda.synchronize()
             aside = ""
-            if "vs" in extra:   # on record, not a gate
-                other, fn = extra["vs"]
+            if "vs" in c:   # on record, not a gate
+                other, fn = c["vs"]
                 _, rel = errors(got, fn())
                 aside = f", rel err vs {other} {rel:.3e} (no gate)"
-            if kind == "gn":   # (sum, sum of squares), scaled by the latter
+            if c["tol"] == "gn":   # (sum, sum of squares), scaled by the latter
                 abs_err = max(errors(got[i], want[i])[0] for i in (0, 1))
                 err = abs_err / float(want[1].abs().max())
                 tol = GN_TOL
             else:
                 (abs_err, err), tol = errors(got, want), BF16_TOL
+            t_bytes = 1e3 * nbytes(c["ins"], got) / HBM_BPS
+            t_ops = 1e3 * c["ops"] / PEAK[c["rate"]]
             del got, want
             # in turns: plain, kernel, kernel, plain
             p1 = cuda_time_ms(plain)
@@ -265,24 +409,35 @@ def check_kernels(dev):
             k2 = cuda_time_ms(kern)
             p2 = cuda_time_ms(plain)
             k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-            if "time" in extra:
-                other, fn = extra["time"]
+            if c["library"] is not None:
+                l_ms = (cuda_time_ms(c["library"])
+                        + cuda_time_ms(c["library"])) / 2
+                lib_ms += l_ms
+                aside += f", library {l_ms:.4f} ms"
+            if "time" in c:
+                other, fn = c["time"]
                 o_ms = (cuda_time_ms(fn) + cuda_time_ms(fn)) / 2
                 extra_ms[other] = extra_ms.get(other, 0.0) + o_ms
                 aside += f", {other} {o_ms:.4f} ms"
-            log(f"kernel {name} {label}: max abs err {abs_err:.4g}, rel "
+            log(f"kernel {name} {c['label']}: max abs err {abs_err:.4g}, rel "
                 f"{err:.3e} (tol {tol:g}), kernel {k_ms:.4f} ms, plain "
-                f"{p_ms:.4f} ms{aside}")
+                f"{p_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms (bytes "
+                f"{t_bytes:.4f}, {c['rate']} ops {t_ops:.4f}){aside}")
             if not err <= tol:
-                fail(f"{name} {label}: error {err} above {tol}")
+                fail(f"{name} {c['label']}: error {err} above {tol}")
             worst_abs, worst_rel = max(worst_abs, abs_err), max(worst_rel, err)
             ms += k_ms
             plain_ms += p_ms
+            bound_ms += max(t_bytes, t_ops)
+            bytes_bound_ms += t_bytes if t_bytes >= t_ops else 0.0
             torch.cuda.empty_cache()
         results[name] = {"name": name, "route": "cuda", "source": source,
                          "replaces": replaces, "max_abs_err": worst_abs,
                          "max_rel_err": worst_rel, "tol_rel": tol,
-                         "ms": ms, "plain_ms": plain_ms,
+                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": ("bytes" if 2 * bytes_bound_ms >= bound_ms
+                                      else "operations"),
+                         "library_ms": lib_ms, "library": library,
                          "shapes": len(cases)}
         results[name].update({f"{k}_ms": v for k, v in extra_ms.items()})
     return results
@@ -310,16 +465,19 @@ def make_inputs(models, dev, gen):
                                       device=dev) * 2 - 1).to(dt))
 
 
-def check_step(pipe, inputs, gen, path):
-    """One full-width denoise step with ``impl="cuda"`` against
-    ``impl="torch"`` on the same inputs; fails where the guided noise
-    prediction or the stepped latent differs by more than its bounds in
-    ``STEP_TOLS``."""
+def step_readings(pipe, inputs, gen, path):
+    """One denoise step with ``impl="cuda"`` and with ``impl="torch"`` on the
+    same inputs; returns {"noise_pred" | "latent": (max rel, mean rel)} of
+    the cuda result against the torch one: the guided noise prediction
+    (read from the TryonNet's output as the step runs) and the stepped
+    latent."""
     import torch
     from idmvton_tpu_torch.diffusion.scheduler import classifier_free_guidance
     dev = inputs["person"].device
     cond = pipe.staged_encoder()(gen, inputs)
-    lat_shape = (BATCH, HEIGHT // 8, WIDTH // 8, 4)
+    b, h, w, _ = inputs["person"].shape
+    ds = pipe.models.vae_cfg.downscale
+    lat_shape = (b, h // ds, w // ds, pipe.models.vae_cfg.latent_channels)
     lat = torch.randn(lat_shape, generator=gen, device=dev).to(torch.bfloat16)
     noise = torch.randn(lat_shape, generator=gen, device=dev).to(torch.bfloat16)
     ts, prev_ts = pipe.scheduler.timesteps_and_prev(STEPS)
@@ -340,19 +498,31 @@ def check_step(pipe, inputs, gen, path):
                 f"{time.perf_counter() - t0:.3f} s")
     finally:
         hook.remove()
-    for what, (max_tol, mean_tol) in STEP_TOLS.items():
-        got, want = out[what]["cuda"].float(), out[what]["torch"].float()
-        _, err = errors(got, want)
-        mean_rel = float((got - want).abs().mean() / want.abs().mean())
+    readings = {}
+    for what, by_impl in out.items():
+        got, want = by_impl["cuda"].float(), by_impl["torch"].float()
+        readings[what] = (errors(got, want)[1],
+                          float((got - want).abs().mean() / want.abs().mean()))
+    del cond, out
+    torch.cuda.empty_cache()
+    return readings
+
+
+def check_step(pipe, inputs, gen, path, tols=None):
+    """``step_readings``, gated: fails where the guided noise prediction or
+    the stepped latent differs by more than its bounds in ``tols``
+    (``STEP_TOLS``)."""
+    tols = STEP_TOLS if tols is None else tols
+    readings = step_readings(pipe, inputs, gen, path)
+    for what, (max_tol, mean_tol) in tols.items():
+        err, mean_rel = readings[what]
         log(f"{path} denoise step {what} cuda vs torch: max rel err "
             f"{err:.3e} (tol {max_tol:g}), mean rel err {mean_rel:.3e} "
             f"(tol {mean_tol if mean_tol is not None else 'none'})")
         if not err <= max_tol or (mean_tol is not None
                                   and not mean_rel <= mean_tol):
-            fail(f"{path} full-width denoise step: {what} cuda vs torch "
+            fail(f"{path} denoise step: {what} cuda vs torch "
                  f"max rel error {err}, mean rel error {mean_rel}")
-    del cond, out
-    torch.cuda.empty_cache()
 
 
 def serve_requests(pipe, inputs, gen, wrappers, path):
@@ -381,9 +551,16 @@ def serve_requests(pipe, inputs, gen, wrappers, path):
             + f"); images {tuple(images.shape)} finite, range "
             f"[{float(images.min()):.3f}, {float(images.max()):.3f}], "
             f"std {float(images.float().std()):.4f}")
-    counts = {name: w.launches for name, w in wrappers.items()}
     log(f"{path} peak memory during serving: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return gate_launches(wrappers, path)
+
+
+def gate_launches(wrappers, path, exact=None):
+    """Reads the launch counts of a run (zeroed just before it); fails
+    unless the run launched every kernel of ``PATH_KERNELS[path]``, no other
+    and, for each kernel in ``exact``, exactly that many times."""
+    counts = {name: w.launches for name, w in wrappers.items()}
     log(f"{path} launches: {counts}")
     missing = [k for k in PATH_KERNELS[path] if counts[k] <= 0]
     if missing:
@@ -392,6 +569,62 @@ def serve_requests(pipe, inputs, gen, wrappers, path):
              if n and k not in PATH_KERNELS[path]]
     if stray:
         fail(f"{path} path: kernels of another path launched: {stray}")
+    for k, n in (exact or {}).items():
+        if counts[k] != n:
+            fail(f"{path} path: {k} launched {counts[k]} times, not {n}")
+    return counts
+
+
+def synthetic_batch(n, seed):
+    """n samples of seeded numpy in the ``VitonHDDataset`` layout at
+    HEIGHT x WIDTH (person / pose / cloth in [-1, 1], a {0, 1} mask, 224x224
+    CLIP-normalized ip_pixels, captions), as an in-memory dataset."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    img = lambda: rng.uniform(-1, 1, (HEIGHT, WIDTH, 3)).astype(np.float32)
+    samples = []
+    for i in range(n):
+        mask = np.zeros((HEIGHT, WIDTH, 1), np.float32)
+        mask[HEIGHT // 5:4 * HEIGHT // 5, WIDTH // 6:5 * WIDTH // 6] = 1.0
+        samples.append({
+            "im_name": f"{i:05d}_00.jpg", "c_name": f"{i:05d}_00.jpg",
+            "person": img(), "mask": mask, "pose": img(), "cloth": img(),
+            "ip_pixels": rng.standard_normal((224, 224, 3)).astype(
+                np.float32),
+            "caption": "model is wearing t shirts long ",
+            "caption_cloth": "a photo of t shirts long "})
+    return samples
+
+
+def cli_run(args, models, built, wrappers, path, exact=None):
+    """One batch of 2 synthetic samples through ``cli.infer.run`` (the CLI's
+    per-batch loop and its BatchLoader) with ``built``, the CLI's
+    ``cli.infer.build(args, models)``, and the launch counts zeroed just
+    before and read just after; fails unless the images are uint8
+    (2, HEIGHT, WIDTH, 3) and not constant and the launches pass
+    ``gate_launches``."""
+    import numpy as np
+    from idmvton_tpu_torch.cli import infer
+    from idmvton_tpu_torch.data.datasets import BatchLoader
+    pipe, tok1, tok2, gen = built
+    loader = BatchLoader(synthetic_batch(BATCH, SEED + 2), args.test_batch_size)
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    out = list(infer.run(args, pipe, models, loader, tok1, tok2, gen))
+    secs = time.perf_counter() - t0
+    counts = gate_launches(wrappers, path, exact)
+    if len(out) != 1:
+        fail(f"{path}: {len(out)} batches, expected 1")
+    names, images = out[0]
+    if (images.dtype != np.uint8
+            or images.shape != (BATCH, HEIGHT, WIDTH, 3)):
+        fail(f"{path}: images {images.dtype} {images.shape}")
+    if not images.std() > 0:
+        fail(f"{path}: constant images")
+    log(f"{path}: cli.infer.run batch of {len(names)} ({names}) in "
+        f"{secs:.3f} s: uint8 {images.shape}, mean {images.mean():.2f}, "
+        f"std {images.std():.2f}")
     return counts
 
 
@@ -440,7 +673,10 @@ def main():
         "ln_linear_i8": cuda_norm.ln_linear_i8,
         "cross_attention_small_kv": cuda_attention.cross_attention_small_kv,
         "conv3x3_padacc": cuda_conv.conv3x3_padacc,
+        "flash_attention": cuda_attention.flash_attention,
+        "flash_attention_fused_qkv": cuda_attention.flash_attention_fused_qkv,
     }
+    from idmvton_tpu_torch.cli import infer
 
     with torch.inference_mode():
         # -- phase 3: each kernel against its plain version ------------------
@@ -466,7 +702,12 @@ def main():
         # -- phase 5: serve 2 requests through the bf16 path -----------------
         counts = {"bf16": serve_requests(pipe, inputs, gen, wrappers, "bf16")}
 
-        # -- phase 6: the opt-in variants of the same path -------------------
+        # -- phase 6: the CLI's batch loop at full width ---------------------
+        args = infer.parse_args(["--data_dir", "-"])
+        counts["cli"] = cli_run(args, models, infer.build(args, models),
+                                wrappers, "cli", exact={"flash_attention": 0})
+
+        # -- phase 7: the opt-in variants of the same path -------------------
         from idmvton_tpu_torch.models.attention import (
             quantize_unet_linears_int8,
         )
@@ -483,6 +724,21 @@ def main():
         check_step(pipe, inputs, gen, "variant")
         counts["variant"] = serve_requests(pipe, inputs, gen, wrappers,
                                            "variant")
+        del models, pipe, inputs
+        torch.cuda.empty_cache()
+        os.environ["IDMVTON_CROSS_KERNEL"] = "0"
+        os.environ["IDMVTON_CONV_PADACC"] = "0"
+
+        # -- phase 8: the CLI's --tiny mode (kernel #9) ----------------------
+        args = infer.parse_args(["--data_dir", "-", "--tiny",
+                                 "--device", "cuda"])
+        tiny = infer.load_models(args, torch.bfloat16)
+        built = infer.build(args, tiny)
+        check_step(built[0], make_inputs(tiny, dev, gen), gen, "tiny",
+                   TINY_STEP_TOLS)
+        counts["tiny"] = cli_run(
+            args, tiny, built, wrappers, "tiny",
+            exact={"flash_attention": TINY_FLASH_PER_STEP * STEPS})
 
     kernels = []
     for name in wrappers:

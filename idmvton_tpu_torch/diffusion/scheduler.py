@@ -4,9 +4,9 @@ Counterpart of ``idmvton_tpu/diffusion/scheduler.py`` for the serving
 path: scaled_linear / linear / squaredcos_cap_v2 betas, the zero-terminal-
 SNR rescale, leading / trailing / linspace spacing with ``prev_t`` taken
 from the timestep array, epsilon / v / sample prediction, and the
-classifier-free-guidance combine with its rescale. Strength truncation,
-``add_noise``, the denoising start/end trims and custom timestep lists are
-not ported yet.
+classifier-free-guidance combine with its rescale, ``add_noise`` and the
+strength truncation of the schedule. The denoising start/end trims and
+custom timestep lists are not ported yet.
 
 Timesteps are host integers: the serving loop runs on the host, so the
 per-step coefficients are computed in numpy float32 (the JAX package's fp32
@@ -16,6 +16,7 @@ arithmetic) and applied to device tensors as exact Python floats.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from idmvton_tpu_torch.core.config import SchedulerConfig
 
@@ -49,8 +50,22 @@ class DDPMScheduler:
         self.alphas_cumprod = alphas_cumprod.astype(np.float32)
         self.init_noise_sigma = 1.0
 
-    def timesteps(self, num_inference_steps: int):
-        """Descending int timesteps of the configured spacing."""
+    def add_noise(self, sample, noise, timesteps):
+        """sqrt(ac_t) * sample + sqrt(1 - ac_t) * noise in fp32, cast to the
+        sample's type; ``timesteps`` an int or one per batch row."""
+        ac = self.alphas_cumprod[np.asarray(timesteps)]
+        shape = (-1,) + (1,) * (sample.dim() - 1)
+        coef = lambda a: torch.from_numpy(
+            np.atleast_1d(a).astype(np.float32)).to(sample.device).reshape(
+            shape)
+        return (coef(np.sqrt(ac)) * sample.float()
+                + coef(np.sqrt(np.float32(1.0) - ac)) * noise.float()
+                ).to(sample.dtype)
+
+    def timesteps(self, num_inference_steps: int, strength: float = 1.0):
+        """Descending int timesteps of the configured spacing; with
+        ``strength`` < 1 only the last int(num_inference_steps * strength)
+        (the reference's get_timesteps)."""
         n = self.cfg.num_train_timesteps
         spacing = self.cfg.timestep_spacing
         if spacing == "leading":
@@ -61,11 +76,16 @@ class DDPMScheduler:
             ts = np.round(np.arange(n, 0, -n / num_inference_steps)) - 1
         else:
             ts = np.linspace(0, n - 1, num_inference_steps)[::-1].round()
+        if strength < 1.0:
+            init_t = min(int(num_inference_steps * strength),
+                         num_inference_steps)
+            ts = ts[num_inference_steps - init_t:]
         return ts.astype(np.int64)
 
-    def timesteps_and_prev(self, num_inference_steps: int):
+    def timesteps_and_prev(self, num_inference_steps: int,
+                           strength: float = 1.0):
         """(ts, prev_ts): prev of ts[i] is ts[i+1]; the last step's is -1."""
-        ts = self.timesteps(num_inference_steps)
+        ts = self.timesteps(num_inference_steps, strength)
         return ts, np.concatenate([ts[1:], [-1]]).astype(np.int64)
 
     def predict_x0(self, model_output, sample, t: int):

@@ -11,8 +11,12 @@ Projections are stored fused as in the JAX package (``to_qkv``; ``to_q`` +
 fuse into their GEMMs (``ln_linear``), GarmentNet's emitted LayerNorm runs
 ``fused_layer_norm`` and self-attention runs ``flash_attention_gemm`` --
 each where the JAX package takes the Pallas kernel, under the same shape
-predicates. Cross-attention (77 text + 16 IP tokens) stays plain, as the
-JAX package leaves it to XLA, unless ``IDMVTON_CROSS_KERNEL=1`` opts the
+predicates. Self-attention over head layouts ``flash_attention_gemm`` does
+not take (H*D not a multiple of 128, as at the tiny UNet's 64-wide level)
+goes through ``sdpa`` / ``concat_kv_attention`` with the caller's impl, so
+on CUDA it runs ``flash_attention`` above 256 keys. Cross-attention (77
+text + 16 IP tokens) stays plain, as the JAX package leaves it to XLA,
+unless ``IDMVTON_CROSS_KERNEL=1`` opts the
 CUDA impl into the small-KV kernel (``cross_attention_small_kv``), as it
 opts JAX's Pallas impl in; the torch impl ignores the switch, as JAX's XLA
 impl does.
@@ -123,9 +127,10 @@ class SelfAttention(nn.Module):
                 kv_g = torch.cat([torch.zeros_like(kv_g), kv_g], 0)
             out = concat_kv_attention(q, k, v,
                                       _split_heads(kv_g[..., :inner], heads),
-                                      _split_heads(kv_g[..., inner:], heads))
+                                      _split_heads(kv_g[..., inner:], heads),
+                                      impl=impl)
         else:
-            out = sdpa(q, k, v)
+            out = sdpa(q, k, v, impl=impl)
         return linear(self.to_out, _merge_heads(out))
 
 
@@ -177,7 +182,7 @@ class CrossAttention(nn.Module):
                                          ip_scale=ip_scale)
         else:
             k, v = kv(self.to_kv, context)
-            out = sdpa(q, k, v)
+            out = sdpa(q, k, v, impl=impl)
         return linear(self.to_out, _merge_heads(out))
 
 

@@ -43,7 +43,7 @@ class EncoderLayer(nn.Module):
                               device=x.device).tril_()
             a = attend(q, k, v, hd ** -0.5, mask=mask)
         else:
-            a = sdpa(q, k, v)
+            a = sdpa(q, k, v, impl="torch")
         x = x + linear(self.attn["out"], a.reshape(b, s, c))
         h = linear(self.mlp["fc1"], layer_norm(self.ln2, x))
         h = act(h.float()).to(x.dtype)
@@ -73,7 +73,10 @@ class CLIPText(nn.Module):
         "last_hidden", and "pooled" (B, projection_dim) when projected}."""
         cfg = self.cfg
         act = ACTIVATIONS[cfg.hidden_act]
-        x = self.token_embedding.embedding[input_ids]
+        # an id past the table reads its last row, as JAX's gather clamps
+        # it (the hash tokenizer's 49406/49407 on the tiny 1000-token vocab)
+        x = self.token_embedding.embedding[
+            input_ids.clamp(0, cfg.vocab_size - 1)]
         pos = self.position_embedding.embedding[:input_ids.shape[1]]
         x = x + pos[None].to(x.dtype)
         penultimate = None

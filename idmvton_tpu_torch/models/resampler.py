@@ -57,7 +57,7 @@ class Resampler(nn.Module):
             q = linear(lyr["to_q"], ln).reshape(b, cfg.num_queries, heads, hd)
             kv = linear(lyr["to_kv"], kv_in).reshape(b, kv_in.shape[1], 2,
                                                      heads, hd)
-            attn = sdpa(q, kv[:, :, 0], kv[:, :, 1])
+            attn = sdpa(q, kv[:, :, 0], kv[:, :, 1], impl="torch")
             lat = lat + linear(lyr["to_out"],
                                attn.reshape(b, cfg.num_queries, heads * hd))
             h = linear(lyr["ff_in"], layer_norm(lyr["ff_ln"], lat))

@@ -43,7 +43,7 @@ class VAEAttention(nn.Module):
         q = linear(self.to_q, hs)[:, :, None, :]    # single head
         k = linear(self.to_k, hs)[:, :, None, :]
         v = linear(self.to_v, hs)[:, :, None, :]
-        out = linear(self.to_out, sdpa(q, k, v)[:, :, 0, :])
+        out = linear(self.to_out, sdpa(q, k, v, impl="torch")[:, :, 0, :])
         return x + out.reshape(b, h, w, c)
 
 

@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("ln_linear.cu", "ln_linear_i8.cu", "gn_stats.cu", "conv3x3.cu",
            "conv3x3_padacc.cu", "flash_attention_gemm.cu",
-           "cross_attention_small_kv.cu")
+           "cross_attention_small_kv.cu", "flash_attention.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: name -> argtypes (all return int, a cudaError_t)
 SIGNATURES = {
     "idm_ln_linear": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
@@ -44,6 +45,8 @@ SIGNATURES = {
                                  _F, _I, _P],
     "idm_cross_attention_small_kv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                      _F, _F, _P],
+    "idm_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
 }
 
 _lock = threading.Lock()
@@ -126,10 +129,12 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def ptr(t, name: str, dtype, device=None) -> int:
-    """Device pointer of ``t`` after the checks every kernel needs: a
-    contiguous CUDA tensor of ``dtype`` (on ``device`` when given), 16-byte
-    aligned for the kernels' vector loads. ``None`` passes as NULL."""
+def ptr(t, name: str, dtype, device=None, *, contiguous: bool = True) -> int:
+    """Device pointer of ``t`` after the checks every kernel needs: a CUDA
+    tensor of ``dtype`` (on ``device`` when given), contiguous unless the
+    kernel reads it through strides (``contiguous=False``: the caller checks
+    the strides), 16-byte aligned for the kernels' vector loads. ``None``
+    passes as NULL."""
     if t is None:
         return None
     if not t.is_cuda:
@@ -138,7 +143,7 @@ def ptr(t, name: str, dtype, device=None) -> int:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: data pointer is not 16-byte aligned")

@@ -1,4 +1,4 @@
-"""Plain attention ops (counterpart of ``idmvton_tpu/ops/attention.py``).
+"""Attention ops (counterpart of ``idmvton_tpu/ops/attention.py``).
 
 - ``sdpa``                   -- scaled dot-product attention.
 - ``concat_kv_attention``    -- q against [own KV | garment KV], the
@@ -6,11 +6,18 @@
 - ``decoupled_ip_attention`` -- IP-Adapter: two softmaxes (text, image)
   summed, not one softmax over the concatenated context.
 
-Shapes: q (B, Sq, H, D); k/v (B, Skv, H, D). Written as matmul + softmax
-(not SDPA) so the numerics follow the JAX formula: fp32 logits and softmax,
-probabilities cast to the input type for the PV product. The JAX package
-leaves these to XLA on the serving path (short 77+16-token contexts, the
-VAE mid-block), so the port keeps them plain on every device.
+Shapes: q (B, Sq, H, D); k/v (B, Skv, H, D). The plain path is matmul +
+softmax (not SDPA) so the numerics follow the JAX formula: fp32 logits and
+softmax, probabilities cast to the input type for the PV product.
+
+``sdpa`` and ``concat_kv_attention`` dispatch as the JAX ops do: the
+``"cuda"`` impl takes ``cuda_attention.flash_attention`` (which itself
+keeps up to 256 keys on the plain formula, as the JAX kernel wrapper does),
+the ``"torch"`` impl the plain path. The UNets' self-attention reaches the
+kernel where ``flash_attention_gemm`` does not take its head layout; the
+text, vision, Resampler and VAE attention pass ``impl="torch"``, as the JAX
+package passes ``impl="xla"`` there. ``decoupled_ip_attention`` (77 + 16
+tokens) is plain on every device, as in JAX.
 """
 
 from __future__ import annotations
@@ -18,6 +25,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from idmvton_tpu_torch.ops.dispatch import resolve
 
 
 def softmax_(x):
@@ -40,23 +49,35 @@ def attend(q, k, v, scale: float, mask=None):
     return torch.einsum("bhqk,bkhd->bqhd", p, v).to(q.dtype)
 
 
-def sdpa(q, k, v, *, scale: Optional[float] = None):
+def sdpa(q, k, v, *, scale: Optional[float] = None,
+         impl: Optional[str] = None):
     scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if resolve(impl, q) == "cuda":
+        from idmvton_tpu_torch.ops.cuda_attention import flash_attention
+        return flash_attention(q, k, v, scale=scale)
     return attend(q, k, v, scale)
 
 
 def concat_kv_attention(q, k, v, k_ref, v_ref, *,
-                        scale: Optional[float] = None):
+                        scale: Optional[float] = None,
+                        impl: Optional[str] = None):
     """q (B,N,H,D) against concat([own KV, garment KV]) on the sequence axis;
     equals the reference's ``attn(cat([x, g]))[:, :N]``."""
-    return sdpa(q, torch.cat([k, k_ref], 1), torch.cat([v, v_ref], 1),
-                scale=scale)
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if resolve(impl, q) == "cuda":
+        from idmvton_tpu_torch.ops.cuda_attention import (
+            flash_attention_concat_kv,
+        )
+        return flash_attention_concat_kv(q, k, v, k_ref, v_ref, scale=scale)
+    return attend(q, torch.cat([k, k_ref], 1), torch.cat([v, v_ref], 1),
+                  scale)
 
 
 def decoupled_ip_attention(q, k_text, v_text, k_ip, v_ip, *,
                            ip_scale: float = 1.0,
                            scale: Optional[float] = None):
-    out_text = sdpa(q, k_text, v_text, scale=scale)
-    out_ip = sdpa(q, k_ip, v_ip, scale=scale)
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    out_text = attend(q, k_text, v_text, scale)
+    out_ip = attend(q, k_ip, v_ip, scale)
     return out_text + torch.tensor(ip_scale, dtype=out_text.dtype,
                                    device=out_text.device) * out_ip

@@ -22,6 +22,13 @@ opt-in ``IDMVTON_CROSS_KERNEL=1`` branch of cross-attention) attends the
 to_q output over the fused to_kv output of the 77 text tokens and,
 separately, of the 16 IP tokens, in GEMM layouts end to end; its plain
 version is ``cross_attention_small_kv_torch``.
+
+``flash_attention`` / ``flash_attention_concat_kv`` /
+``flash_attention_fused_qkv`` (``csrc/flash_attention.cu``, counterparts of
+the Pallas ``_flash_kernel`` / ``_flash_kernel_fused``) take (B, S, H, D)
+heads of any D = 8..128 (a multiple of 8), read through their strides; the
+self-attention of head layouts ``flash_attention_gemm`` does not take runs
+them. Plain versions: the ``*_torch`` functions (JAX ``_xla_ref_bhsd``).
 """
 
 from __future__ import annotations
@@ -32,10 +39,124 @@ from typing import Optional
 import torch
 
 from idmvton_tpu_torch.ops import _build
-from idmvton_tpu_torch.ops.attention import attend, softmax_
+from idmvton_tpu_torch.ops.attention import (
+    attend, concat_kv_attention, sdpa, softmax_,
+)
 
 _LANE = 128
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+# up to this many keys the JAX flash_attention takes its XLA einsum path
+# (the default of pallas_attention.py:45)
+XLA_KV_CUTOFF = 256
+
+
+# ---------------------------------------------------------------------------
+# flash attention over (B, S, H, D) heads (replaces pallas_attention.py::
+# flash_attention / flash_attention_concat_kv, _flash_kernel, and
+# flash_attention_fused_qkv, _flash_kernel_fused)
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_torch(q, k, v, *, scale: Optional[float] = None):
+    """Plain version (JAX ``_xla_ref_bhsd`` in (B, S, H, D)): fp32 logits,
+    the softmax normalized before the cast to q's type, PV accumulated in
+    fp32 -- the plain ``sdpa``."""
+    return sdpa(q, k, v, scale=scale, impl="torch")
+
+
+def flash_attention_concat_kv_torch(q, k, v, k_ref, v_ref, *,
+                                    scale: Optional[float] = None):
+    return concat_kv_attention(q, k, v, k_ref, v_ref, scale=scale,
+                               impl="torch")
+
+
+def flash_attention_fused_qkv_torch(qkv, s_own: int, *,
+                                    scale: Optional[float] = None):
+    return flash_attention_torch(qkv[:, :s_own, 0], qkv[:, :, 1],
+                                 qkv[:, :, 2], scale=scale)
+
+
+def _flash_strides(t, name: str, heads: int, d: int):
+    """(batch, row) strides of a (B, S, H, D) view the kernel reads in
+    place: heads packed (stride D) and elements contiguous; every stride a
+    multiple of 8 for the 16-byte copies."""
+    if t.dim() != 4 or t.shape[2] != heads or t.shape[3] != d:
+        raise ValueError(f"{name} {tuple(t.shape)}: expected (B, S, {heads}, "
+                         f"{d})")
+    sb, sr, sh, se = t.stride()
+    if se != 1 or sh != d or sb % 8 or sr % 8:
+        raise ValueError(f"{name}: strides {t.stride()} are not (8k, 8k, "
+                         f"{d}, 1)")
+    return sb, sr
+
+
+def _flash_launch(q, k, v, scale):
+    b, sq, heads, d = q.shape
+    if d % 8 or not 8 <= d <= 128:
+        raise ValueError(f"flash_attention kernel: head dim {d} (a multiple "
+                         f"of 8 up to 128)")
+    skv = k.shape[1]
+    if tuple(k.shape) != (b, skv, heads, d) or k.shape != v.shape or skv < 1:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    strides = [*_flash_strides(q, "q", heads, d),
+               *_flash_strides(k, "k", heads, d),
+               *_flash_strides(v, "v", heads, d)]
+    out = torch.empty(b, sq, heads, d, dtype=q.dtype, device=q.device)
+    dev = q.device
+    _build.call("idm_flash_attention",
+                _build.ptr(q, "q", torch.bfloat16, contiguous=False),
+                _build.ptr(k, "k", torch.bfloat16, dev, contiguous=False),
+                _build.ptr(v, "v", torch.bfloat16, dev, contiguous=False),
+                _build.ptr(out, "out", torch.bfloat16),
+                b, sq, skv, heads, d, *strides, *out.stride()[:2],
+                float(scale), _build.stream_ptr(dev))
+    return out
+
+
+def flash_attention(q, k, v, *, scale: Optional[float] = None):
+    """q (B, Sq, H, D), k/v (B, Skv, H, D) bf16 -> (B, Sq, H, D) bf16.
+
+    Up to ``XLA_KV_CUTOFF`` keys this computes the plain formula, as the
+    JAX function routes such shapes to its XLA einsum (pallas_attention.py:
+    183-189): that is its own choice by shape, not a fallback. Above it, the
+    kernel."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if k.shape[1] <= XLA_KV_CUTOFF:
+        return flash_attention_torch(q, k, v, scale=scale)
+    out = _flash_launch(q, k, v, scale)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def flash_attention_concat_kv(q, k, v, k_ref, v_ref, *,
+                              scale: Optional[float] = None):
+    """q against [own KV | garment KV] on the sequence axis: the two K/V
+    tensors are concatenated (as the JAX function does), then
+    ``flash_attention``."""
+    return flash_attention(q, torch.cat([k, k_ref], 1),
+                           torch.cat([v, v_ref], 1), scale=scale)
+
+
+def flash_attention_fused_qkv(qkv, s_own: int, *,
+                              scale: Optional[float] = None):
+    """qkv (B, St, 3, H, D) bf16, a fused projection over St tokens ->
+    (B, s_own, H, D) bf16: the first ``s_own`` tokens' queries over all St
+    keys and values, read in place from the one buffer. Always the kernel
+    (the JAX function has no XLA cutoff)."""
+    b, st, three, heads, d = qkv.shape
+    if three != 3 or not 1 <= s_own <= st:
+        raise ValueError(f"qkv {tuple(qkv.shape)} with s_own {s_own}")
+    scale = scale if scale is not None else d ** -0.5
+    out = _flash_launch(qkv[:, :s_own, 0], qkv[:, :, 1], qkv[:, :, 2], scale)
+    flash_attention_fused_qkv.launches += 1
+    return out
+
+
+flash_attention_fused_qkv.launches = 0
 
 
 def flash_attention_gemm_torch(qkv, kv_ref=None, *, heads: int,
@@ -102,7 +223,10 @@ flash_attention_gemm.launches = 0
 
 def flash_attention_gemm_supported(qkv, heads: int) -> bool:
     """JAX ``flash_attention_gemm_supported`` (H*D % 128 == 0, D divides
-    128), plus the kernel's 16-wide head-dim MMA steps (D >= 16)."""
+    128), plus the kernel's 16-wide head-dim MMA steps (D >= 16). So D = 8
+    with H*D a multiple of 128, which JAX gives to the GEMM-layout kernel,
+    takes ``flash_attention`` here: the same function (no config of the repo
+    has such a layout)."""
     inner = qkv.shape[-1] // 3
     d = inner // heads
     return (inner % _LANE == 0 and d <= _LANE and _LANE % d == 0

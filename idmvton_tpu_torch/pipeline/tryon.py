@@ -8,8 +8,9 @@ CFG batches are ordered [uncond | cond]; GarmentNet runs the cond half only
 and TryonNet folds the uncond half's zero garment KV in analytically.
 
 Randomness comes from one explicit ``torch.Generator``, consumed in a fixed
-order (VAE posterior samples, initial noise, then one draw per step); parity
-runs pass ``vae_sample=False`` and inject ``init_noise`` / ``step_noise``.
+order (VAE posterior samples, initial noise, the person latent's posterior
+sample when ``strength`` < 1, then one draw per step); parity runs pass
+``vae_sample=False`` and inject ``init_noise`` / ``step_noise``.
 """
 
 from __future__ import annotations
@@ -71,7 +72,7 @@ class TryonModels:
 
     @staticmethod
     def init(seed: Optional[int] = 0, *, tiny: bool = False,
-             device="cpu", dtype=torch.bfloat16) -> "TryonModels":
+             device="cuda", dtype=torch.bfloat16) -> "TryonModels":
         """Build the stack on ``device`` (full SDXL widths, or the tiny test
         configs). With a ``seed``, parameters get the JAX package's random
         init from a generator on ``device``; with ``seed=None`` they are
@@ -244,6 +245,7 @@ class TryonPipeline:
 
     def stepwise_generate(self, *, num_steps: int = 30,
                           guidance_scale: float = 2.0,
+                          strength: float = 1.0,
                           garment_cache: str = "every_step",
                           vae_sample: bool = True, impl=None):
         """Returns fn(generator, *, init_noise=None, step_noise=None,
@@ -251,8 +253,11 @@ class TryonPipeline:
 
         garment_cache: "every_step" runs GarmentNet each step (reference
         semantics); "once" computes its features at the schedule's middle
-        timestep and reuses them. init_noise (B, h, w, 4) / step_noise
-        (T, B, h, w, 4) replace the generator's draws. A ``phase_seconds``
+        timestep and reuses them. ``strength`` < 1 runs the last
+        int(num_steps * strength) steps from the person image's VAE latents
+        noised to the first of them (the reference's prepare_latents).
+        init_noise (B, h, w, 4) / step_noise (T, B, h, w, 4), T the steps
+        run, replace the generator's draws. A ``phase_seconds``
         dict receives the encode / denoise / decode wall times (each phase
         ends in a device synchronize)."""
         if garment_cache not in ("every_step", "once"):
@@ -260,7 +265,10 @@ class TryonPipeline:
         m = self.models
         sched = self.scheduler
         encode = self.staged_encoder(vae_sample=vae_sample)
-        ts, prev_ts = sched.timesteps_and_prev(num_steps)
+        ts, prev_ts = sched.timesteps_and_prev(num_steps, strength)
+        if len(ts) == 0:
+            raise ValueError(f"strength {strength} leaves none of "
+                             f"{num_steps} steps")
 
         @torch.inference_mode()
         def fn(generator, *, init_noise=None, step_noise=None,
@@ -284,7 +292,13 @@ class TryonPipeline:
             if init_noise is None:
                 init_noise = torch.randn(lshape, generator=generator,
                                          device=device, dtype=torch.float32)
-            lat = init_noise.to(dtype) * sched.init_noise_sigma
+            if strength >= 1.0:
+                lat = init_noise.to(dtype) * sched.init_noise_sigma
+            else:
+                image_lat = m.vae.encode(person, generator,
+                                         sample=vae_sample)
+                lat = sched.add_noise(image_lat.to(dtype),
+                                      init_noise.to(dtype), int(ts[0]))
             phase("encode")
             feats = None
             if garment_cache == "once":

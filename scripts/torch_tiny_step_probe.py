@@ -1,0 +1,205 @@
+#!/usr/bin/env python3
+"""Fault probe and profile of the PyTorch port's tiny try-on step on one
+NVIDIA card: the inference CLI's ``--tiny`` mode (``UNetConfig.tiny``) at
+768x1024, batch 2, 30 steps, the operating point of ``chip_smoke.py``'s
+last phase.
+
+Run from the root of a checkout: ``python3 scripts/torch_tiny_step_probe.py``.
+It needs one CUDA card and nvcc, and imports nothing of JAX.
+
+1. Runs the tiny CLI batch (``cli.infer.run``) three times, wall time each.
+2. Times one tiny denoise step (``impl="cuda"``) unprofiled, the mean of 5
+   after 2 warm-up steps, then profiles one with ``torch.profiler``: the
+   device's busy time is the union of its kernel, memcpy and memset
+   intervals in the trace, and the idle share is 1 - busy / unprofiled
+   wall. The trace goes to ``chiprun_out/tiny_step_trace.json``.
+3. Reads the tiny step's cuda-vs-torch guided noise prediction
+   (``chip_smoke.step_readings``) clean and with a fault planted where
+   ``flash_attention`` launches kernel #9 (more than 256 keys): its output
+   x1.02 and x1.05, and the garment half of the concatenated KV dropped. Every reading draws
+   from the same seed, so only the fault differs.
+4. Runs the CLI batch twice more.
+
+Prints one JSON object with every reading as its last line.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as smoke  # noqa: E402
+
+OUT = ROOT / "chiprun_out"
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def busy_us(events):
+    """The union of the device intervals' lengths, in microseconds."""
+    total, end = 0.0, float("-inf")
+    for start, stop in sorted(events):
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total
+
+
+def profile_step(step, wall_ms):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    OUT.mkdir(exist_ok=True)
+    trace = OUT / "tiny_step_trace.json"
+    prof.export_chrome_trace(str(trace))
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    intervals = [(e["ts"], e["ts"] + e["dur"]) for e in events]
+    busy = busy_us(intervals) / 1e3
+    span = (max(b for _, b in intervals) - min(a for a, _ in intervals)) / 1e3
+    by_name = {}
+    for e in events:
+        if e["cat"] == "kernel":
+            name = e["name"][:60]
+            ms, n = by_name.get(name, (0.0, 0))
+            by_name[name] = (ms + e["dur"] / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    res = {"wall_ms": wall_ms, "device_busy_ms": busy,
+           "idle_share": 1 - busy / wall_ms,
+           "profiled_device_span_ms": span,
+           "kernels": sum(1 for e in events if e["cat"] == "kernel"),
+           "top_kernels": [{"name": k, "ms": ms, "calls": n}
+                           for k, (ms, n) in top]}
+    smoke.log(f"tiny step: wall {wall_ms:.3f} ms unprofiled, device busy "
+              f"{busy:.3f} ms ({res['kernels']} kernels), idle share "
+              f"{res['idle_share']:.3f}; profiled device span {span:.3f} ms")
+    for k, (ms, n) in top:
+        smoke.log(f"  {ms:8.3f} ms {n:5d}x {k}")
+    return res
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        smoke.fail("torch.cuda.is_available() is false: this probe needs a "
+                   "card")
+    from idmvton_tpu_torch.cli import infer
+    from idmvton_tpu_torch.data.datasets import BatchLoader
+    from idmvton_tpu_torch.ops import _build
+    from idmvton_tpu_torch.ops import cuda_attention as A
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    smoke.log(smi.stdout.strip())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.lib()
+    dev = torch.device("cuda", 0)
+    res = {"card": smi.stdout.strip(), "batch_s": []}
+
+    with torch.inference_mode():
+        args = infer.parse_args(["--data_dir", "-", "--tiny",
+                                 "--device", "cuda"])
+        tiny = infer.load_models(args, torch.bfloat16)
+        pipe, tok1, tok2, gen = infer.build(args, tiny)
+        loader = BatchLoader(smoke.synthetic_batch(smoke.BATCH, smoke.SEED + 2),
+                             args.test_batch_size)
+
+        def batch():
+            t0 = time.perf_counter()
+            out = list(infer.run(args, pipe, tiny, loader, tok1, tok2, gen))
+            secs = time.perf_counter() - t0
+            if len(out) != 1 or out[0][1].shape != (smoke.BATCH, smoke.HEIGHT,
+                                                    smoke.WIDTH, 3):
+                smoke.fail("tiny CLI batch: unexpected output")
+            res["batch_s"].append(secs)
+            smoke.log(f"tiny CLI batch: {secs:.3f} s")
+
+        for _ in range(3):
+            batch()
+
+        g = torch.Generator(device=dev).manual_seed(smoke.SEED + 1)
+        inputs = smoke.make_inputs(tiny, dev, g)
+        cond = pipe.staged_encoder()(g, inputs)
+        b, h, w, _ = inputs["person"].shape
+        ds = tiny.vae_cfg.downscale
+        lat_shape = (b, h // ds, w // ds, tiny.vae_cfg.latent_channels)
+        lat = torch.randn(lat_shape, generator=g, device=dev).bfloat16()
+        noise = torch.randn(lat_shape, generator=g, device=dev).bfloat16()
+        ts, prev_ts = pipe.scheduler.timesteps_and_prev(smoke.STEPS)
+
+        def step():
+            return pipe.denoise_step(cond, lat, int(ts[0]), int(prev_ts[0]),
+                                     guidance_scale=smoke.GUIDANCE,
+                                     step_noise=noise, impl="cuda")
+
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+        res["step"] = profile_step(step, (time.perf_counter() - t0) / 5 * 1e3)
+
+        fa, fa_cat = A.flash_attention, A.flash_attention_concat_kv
+        calls = [0]
+
+        def scaled(f):
+            def fault(q, k, v, *, scale=None):
+                out = fa(q, k, v, scale=scale)
+                if k.shape[1] <= A.XLA_KV_CUTOFF:   # the plain routing
+                    return out
+                calls[0] += 1
+                return out * f
+            # the wrapper counts its launches under its module name
+            fault.launches = 0
+            return fault
+
+        def own_kv_only(q, k, v, k_ref, v_ref, *, scale=None):
+            calls[0] += 1
+            return fa(q, k, v, scale=scale)
+
+        faults = {"clean": {},
+                  "flash_attention x1.02": {"flash_attention": scaled(1.02)},
+                  "flash_attention x1.05": {"flash_attention": scaled(1.05)},
+                  "garment KV dropped": {
+                      "flash_attention_concat_kv": own_kv_only}}
+        res["probe"] = {}
+        for label, patch in faults.items():
+            calls[0] = 0
+            for name, fn in patch.items():
+                setattr(A, name, fn)
+            try:
+                r = smoke.step_readings(
+                    pipe, inputs,
+                    torch.Generator(device=dev).manual_seed(smoke.SEED + 3),
+                    f"tiny [{label}]")
+            finally:
+                A.flash_attention, A.flash_attention_concat_kv = fa, fa_cat
+            res["probe"][label] = {"faulty_calls": calls[0],
+                                   "noise_pred": r["noise_pred"],
+                                   "latent": r["latent"]}
+            smoke.log(f"tiny [{label}] ({calls[0]} faulty calls): noise_pred "
+                      f"max rel {r['noise_pred'][0]:.3e} mean rel "
+                      f"{r['noise_pred'][1]:.3e}; latent max rel "
+                      f"{r['latent'][0]:.3e} (bounds "
+                      f"{smoke.TINY_STEP_TOLS['noise_pred']})")
+
+        for _ in range(2):
+            batch()
+
+    print(json.dumps(res), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -15,6 +15,9 @@ agree to a few bf16 ulps: max |kernel - plain| <= 2e-2 * max |plain|.
 The W8A8 kernel and its plain version sum the same int8 products exactly;
 they differ only where an fp32 LayerNorm rounding flips one code, far
 inside the same bound.
+The flash attention kernel (#9, #10) casts the unnormalized probabilities
+to bf16 for the PV product and its plain version the normalized ones: the
+same bf16 bound.
 The GroupNorm statistics are fp32 sums in another order (deterministic,
 no atomics): max error <= 1e-5 * max |sum of squares|.
 """
@@ -204,6 +207,53 @@ def test_conv3x3_padacc_kernel(dev, b, h, w, cin, cout, bias):
     assert _rel_err(got, want) <= BF16_TOL
 
 
+@pytest.mark.parametrize("d", [8, 16, 24, 64, 72, 128])
+@pytest.mark.parametrize("sq,skv", [(300, 384), (64, 257), (1, 1000),
+                                    (130, 6144)])
+def test_flash_attention_kernel(dev, d, sq, skv):
+    """Dense (B, S, H, D) heads and the split-heads views of a fused to_qkv
+    output (row stride 3*H*D), ragged query and key tiles."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    b, h = 2, 3
+    q = _randn(g, b, sq, h, d, dev=dev, scale=2.0)
+    qkv = _randn(g, b, skv, 3 * h * d, dev=dev)
+    k = qkv[..., h * d:2 * h * d].reshape(b, skv, h, d)
+    v = qkv[..., 2 * h * d:].reshape(b, skv, h, d)
+    before = cuda_attention.flash_attention.launches
+    got = cuda_attention.flash_attention(q, k, v)
+    want = cuda_attention.flash_attention_torch(q, k, v)
+    torch.cuda.synchronize()
+    assert got.shape == (b, sq, h, d)
+    assert cuda_attention.flash_attention.launches == before + 1
+    assert _rel_err(got, want) <= BF16_TOL
+
+
+@pytest.mark.parametrize("d", [8, 16, 64, 128])
+@pytest.mark.parametrize("st,s_own", [(384, 300), (6144, 3072), (70, 70)])
+def test_flash_attention_fused_qkv_kernel(dev, d, st, s_own):
+    g = torch.Generator(device=dev).manual_seed(7)
+    qkv = _randn(g, 2, st, 3, 4, d, dev=dev, scale=1.5)
+    before = cuda_attention.flash_attention_fused_qkv.launches
+    got = cuda_attention.flash_attention_fused_qkv(qkv, s_own, scale=0.3)
+    want = cuda_attention.flash_attention_fused_qkv_torch(qkv, s_own,
+                                                          scale=0.3)
+    torch.cuda.synchronize()
+    assert got.shape == (2, s_own, 4, d)
+    assert cuda_attention.flash_attention_fused_qkv.launches == before + 1
+    assert _rel_err(got, want) <= BF16_TOL
+
+
+def test_flash_attention_below_the_cutoff_is_plain(dev):
+    """Up to 256 keys flash_attention computes the plain formula, as the
+    JAX function routes such shapes to XLA, and launches nothing."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    q, k, v = (_randn(g, 2, s, 2, 16, dev=dev) for s in (300, 256, 256))
+    before = cuda_attention.flash_attention.launches
+    got = cuda_attention.flash_attention(q, k, v)
+    assert cuda_attention.flash_attention.launches == before
+    assert torch.equal(got, cuda_attention.flash_attention_torch(q, k, v))
+
+
 def test_kernels_refuse_other_types(dev):
     """The sites' predicates are shape conditions only, so a CUDA tensor of
     a type the kernel does not take reaches the wrapper, which raises (no
@@ -232,3 +282,9 @@ def test_kernels_refuse_other_types(dev):
     with pytest.raises(ValueError, match="bfloat16"):
         cuda_conv.conv3x3_padacc(x.reshape(2, 8, 8, 128),
                                  torch.zeros(3, 3, 128, 128, device=dev))
+    with pytest.raises(ValueError, match="bfloat16"):
+        cuda_attention.flash_attention(*(torch.zeros(1, 300, 2, 16,
+                                                     device=dev),) * 3)
+    with pytest.raises(ValueError, match="bfloat16"):
+        cuda_attention.flash_attention_fused_qkv(
+            torch.zeros(1, 300, 3, 2, 16, device=dev), 100)

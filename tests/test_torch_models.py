@@ -108,6 +108,10 @@ def test_config_classes_match_jax():
 
 
 def test_port_imports_no_jax():
+    """Every module of the port, the CLIs and data modules included, imports
+    without JAX, the JAX package, PIL or OpenCV (the card's host may lack
+    the last two: only the functions that read or write files import
+    them)."""
     code = ("import importlib, pkgutil, sys\n"
             "import idmvton_tpu_torch as p\n"
             "mods = [m.name for m in pkgutil.walk_packages(\n"
@@ -115,8 +119,10 @@ def test_port_imports_no_jax():
             "for m in mods:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules\n"
-            "             if k.split('.')[0] in ('jax', 'jaxlib', 'idmvton_tpu'))\n"
+            "             if k.split('.')[0] in ('jax', 'jaxlib', 'idmvton_tpu',\n"
+            "                                    'PIL', 'cv2'))\n"
             "assert not bad, bad\n"
+            "assert 'idmvton_tpu_torch.cli.infer' in mods\n"
             "print(len(mods))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)

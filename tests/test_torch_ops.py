@@ -178,6 +178,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         lambda: cuda_conv.conv3x3_padacc(x.reshape(2, 4, 4, 128),
                                          w.reshape(1, 1, 128, 128).expand(
                                              3, 3, 128, 128).contiguous()),
+        lambda: cuda_attention.flash_attention(
+            *(torch.zeros(1, 300, 2, 16, dtype=torch.bfloat16),) * 3),
+        lambda: cuda_attention.flash_attention_fused_qkv(
+            torch.zeros(1, 300, 3, 2, 16, dtype=torch.bfloat16), 100),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):

@@ -37,7 +37,8 @@ def _close(got, want, tol=1e-4):
 def stacks():
     jm = jtryon.TryonModels.init(jax.random.PRNGKey(0), tiny=True,
                                  dtype=jnp.float32)
-    tm = ttryon.TryonModels.init(None, tiny=True, dtype=torch.float32)
+    tm = ttryon.TryonModels.init(None, tiny=True, dtype=torch.float32,
+                                 device="cpu")
     load_jax_params(tm, jax.tree.map(np.asarray, jm.params()))
     return jm, tm
 
@@ -99,6 +100,55 @@ def test_stepwise_generate_matches_jax(stacks, inputs, garment_cache):
     assert got.shape == (B, H, W, 3) and bool(torch.isfinite(got).all())
     assert set(phases) == {"encode", "denoise", "decode"}
     _close(got, want, tol=2e-4)
+
+
+def test_stepwise_generate_strength_matches_jax(stacks, inputs):
+    """strength 0.6 of 4 steps runs the last 2 from the person image's
+    posterior-mode VAE latents noised to the first of them (JAX
+    ``stepwise_generate``, pipeline/tryon.py:802-832)."""
+    jm, tm = stacks
+    rng = np.random.default_rng(3)
+    lat = (B, H // 8, W // 8, 4)
+    init_noise = rng.standard_normal(lat).astype(np.float32)
+    step_noise = rng.standard_normal((STEPS,) + lat).astype(np.float32)
+    kw = dict(num_steps=4, strength=0.6, vae_sample=False)
+    want = jtryon.TryonPipeline(jm).stepwise_generate(**kw)(
+        jm.params(), jax.random.PRNGKey(2), init_noise=jnp.asarray(init_noise),
+        step_noise=jnp.asarray(step_noise), **_jax_in(inputs))
+    got = ttryon.TryonPipeline(tm).stepwise_generate(**kw)(
+        torch.Generator().manual_seed(2),
+        init_noise=torch.from_numpy(init_noise),
+        step_noise=torch.from_numpy(step_noise), **_torch_in(inputs))
+    _close(got, want, tol=2e-4)
+    with pytest.raises(ValueError, match="leaves none"):
+        ttryon.TryonPipeline(tm).stepwise_generate(num_steps=4, strength=0.1)
+
+
+@pytest.mark.parametrize("spacing", ["leading", "trailing", "linspace"])
+def test_strength_schedule_and_add_noise_match_jax(spacing):
+    """Exact: the same integer schedule, and the same fp32 coefficients
+    and elementwise products."""
+    from idmvton_tpu.core.config import SchedulerConfig as JCfg
+    from idmvton_tpu.diffusion.scheduler import DDPMScheduler as JSched
+    from idmvton_tpu_torch.core.config import SchedulerConfig as TCfg
+    from idmvton_tpu_torch.diffusion.scheduler import DDPMScheduler as TSched
+    js = JSched(JCfg(timestep_spacing=spacing))
+    ts_ = TSched(TCfg(timestep_spacing=spacing))
+    for n, strength in ((30, 1.0), (30, 0.6), (25, 0.33), (10, 0.05)):
+        want_t, want_p = js.timesteps_and_prev(n, strength)
+        got_t, got_p = ts_.timesteps_and_prev(n, strength)
+        np.testing.assert_array_equal(got_t, np.asarray(want_t))
+        np.testing.assert_array_equal(got_p, np.asarray(want_p))
+    rng = np.random.default_rng(4)
+    x, n = (rng.standard_normal((3, 4, 4, 4)).astype(np.float32)
+            for _ in range(2))
+    for t in (999, 500, 0, [981, 20, 1]):
+        want = js.add_noise(jnp.asarray(x), jnp.asarray(n), jnp.asarray(t))
+        got = ts_.add_noise(torch.from_numpy(x), torch.from_numpy(n), t)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    got = ts_.add_noise(torch.from_numpy(x).bfloat16(),
+                        torch.from_numpy(n).bfloat16(), 500)
+    assert got.dtype == torch.bfloat16
 
 
 def test_stepwise_generate_draws_from_the_generator(stacks, inputs):

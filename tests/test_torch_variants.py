@@ -245,9 +245,11 @@ def int8_stacks():
     jq = dict(jp, unet=jquant.quantize_unet_linears_int8(jp["unet"]),
               garm=jquant.quantize_unet_linears_int8(jp["garm"],
                                                      attn_qkv=False))
-    tm = ttryon.TryonModels.init(None, tiny=True, dtype=torch.float32)
+    tm = ttryon.TryonModels.init(None, tiny=True, dtype=torch.float32,
+                                 device="cpu")
     load_jax_params(tm, jax.tree.map(np.asarray, jp))
-    tq = ttryon.TryonModels.init(None, tiny=True, dtype=torch.float32)
+    tq = ttryon.TryonModels.init(None, tiny=True, dtype=torch.float32,
+                                 device="cpu")
     quantize_unet_linears_int8(tq.unet)
     quantize_unet_linears_int8(tq.garm, attn_qkv=False)
     load_jax_params(tq, jax.tree.map(np.asarray, jq))
