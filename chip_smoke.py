@@ -34,7 +34,8 @@ failure:
    against ``impl="torch"``, then a batch, whose 64-wide level runs
    ``flash_attention`` (kernel #9) 10 times a step;
    the launch counters, zeroed before each serving phase and read after
-   it, show that each path launched every kernel it runs and no other;
+   it, show that each path launched every kernel it runs and no other, and
+   each conv kernel exactly once a conv site of the path;
 9. print a JSON line with each kernel's result, then the device line.
 """
 
@@ -84,6 +85,14 @@ TINY_STEP_TOLS = {"noise_pred": (5e-2, 3e-2), "latent": (5e-2, None)}
 # cutoff: 5 + 5 flash_attention launches a denoise step. The 128-wide level
 # and the mid block (8 heads, H*D = 128) take flash_attention_gemm.
 TINY_FLASH_PER_STEP = 10
+# The conv sites of one full-width request (read on an H100, PR 1): 1999
+# conv3x3 launches (every UNet resnet / upsample conv, 30 steps x 2 UNets,
+# and the VAE's 128x96 level) and 32 conv3x3_hblock (the VAE's larger
+# levels); the variant path sends the conv3x3 sites to conv3x3_padacc. Gated
+# exactly, so a kernel predicate that narrows cannot take sites off the
+# kernel unseen. The tiny CLI batch (read on an H100, PR 3): 860 and 1.
+CONV_PER_REQUEST = {"conv3x3": 1999, "conv3x3_hblock": 32}
+TINY_CONV_PER_BATCH = {"conv3x3": 860, "conv3x3_hblock": 1}
 # the kernels each serving path must launch, and no others
 BF16_PATH = ("ln_linear", "fused_layer_norm", "gn_spatial_stats", "conv3x3",
              "conv3x3_hblock", "flash_attention_gemm")
@@ -525,11 +534,12 @@ def check_step(pipe, inputs, gen, path, tols=None):
                  f"max rel error {err}, mean rel error {mean_rel}")
 
 
-def serve_requests(pipe, inputs, gen, wrappers, path):
+def serve_requests(pipe, inputs, gen, wrappers, path, exact=None):
     """Serve 2 requests through ``stepwise_generate``; returns the launch
     count of each kernel in that run (counts zeroed just before, read just
     after). Fails unless the run launched every kernel of
-    ``PATH_KERNELS[path]`` and no other."""
+    ``PATH_KERNELS[path]``, no other and, for each kernel in ``exact``,
+    exactly that many times."""
     import torch
     serve = pipe.stepwise_generate(num_steps=STEPS, guidance_scale=GUIDANCE,
                                    garment_cache="every_step")
@@ -553,7 +563,7 @@ def serve_requests(pipe, inputs, gen, wrappers, path):
             f"std {float(images.float().std()):.4f}")
     log(f"{path} peak memory during serving: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return gate_launches(wrappers, path)
+    return gate_launches(wrappers, path, exact)
 
 
 def gate_launches(wrappers, path, exact=None):
@@ -700,12 +710,16 @@ def main():
         check_step(pipe, inputs, gen, "bf16")
 
         # -- phase 5: serve 2 requests through the bf16 path -----------------
-        counts = {"bf16": serve_requests(pipe, inputs, gen, wrappers, "bf16")}
+        counts = {"bf16": serve_requests(
+            pipe, inputs, gen, wrappers, "bf16",
+            exact={k: 2 * n for k, n in CONV_PER_REQUEST.items()})}
 
         # -- phase 6: the CLI's batch loop at full width ---------------------
         args = infer.parse_args(["--data_dir", "-"])
         counts["cli"] = cli_run(args, models, infer.build(args, models),
-                                wrappers, "cli", exact={"flash_attention": 0})
+                                wrappers, "cli",
+                                exact=dict(CONV_PER_REQUEST,
+                                           flash_attention=0))
 
         # -- phase 7: the opt-in variants of the same path -------------------
         from idmvton_tpu_torch.models.attention import (
@@ -722,8 +736,10 @@ def main():
         os.environ["IDMVTON_CROSS_KERNEL"] = "1"
         os.environ["IDMVTON_CONV_PADACC"] = "1"
         check_step(pipe, inputs, gen, "variant")
-        counts["variant"] = serve_requests(pipe, inputs, gen, wrappers,
-                                           "variant")
+        counts["variant"] = serve_requests(
+            pipe, inputs, gen, wrappers, "variant",
+            exact={"conv3x3_padacc": 2 * CONV_PER_REQUEST["conv3x3"],
+                   "conv3x3_hblock": 2 * CONV_PER_REQUEST["conv3x3_hblock"]})
         del models, pipe, inputs
         torch.cuda.empty_cache()
         os.environ["IDMVTON_CROSS_KERNEL"] = "0"
@@ -738,7 +754,8 @@ def main():
                    TINY_STEP_TOLS)
         counts["tiny"] = cli_run(
             args, tiny, built, wrappers, "tiny",
-            exact={"flash_attention": TINY_FLASH_PER_STEP * STEPS})
+            exact=dict(TINY_CONV_PER_BATCH,
+                       flash_attention=TINY_FLASH_PER_STEP * STEPS))
 
     kernels = []
     for name in wrappers:

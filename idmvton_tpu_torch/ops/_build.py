@@ -25,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("ln_linear.cu", "ln_linear_i8.cu", "gn_stats.cu", "conv3x3.cu",
            "conv3x3_padacc.cu", "flash_attention_gemm.cu",
            "cross_attention_small_kv.cu", "flash_attention.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "conv3x3.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -39,8 +39,11 @@ SIGNATURES = {
     "idm_ln_linear_i8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "idm_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _P],
     "idm_gn_stats": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "idm_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "idm_conv3x3_padacc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # ... B, H, W, Cin, Cout, then the plan: bn, tile_h, tile_w
+    "idm_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # ... B, H, W, Cin, Cout, then the plan: bm, bn, tiles_per_image
+    "idm_conv3x3_padacc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _P],
     "idm_flash_attention_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                  _F, _I, _P],
     "idm_cross_attention_small_kv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -7,167 +7,42 @@
 //
 // What bounds it on the H100: tensor-core throughput (an implicit GEMM of
 // M = B*H*W pixels, N = Cout, K = 9*Cin; e.g. 49152 x 640 x 5760 at the
-// UNet's 128x96 level).
-// Design: implicit GEMM with 128-pixel x 128-channel output tiles. Each K
-// step is one tap (dy, dx) and 32 input channels: the A tile is gathered
-// straight from the NHWC input (halo pixels outside the image are
-// zero-filled by the async copy, so no padded copy of x is ever made), the
-// B tile is 32 rows of the (9*Cin, Cout) weight matrix. A 3-stage
-// cp.async ring overlaps the loads with bf16 WMMA tensor-core MMAs (fp32
-// accumulate); the fp32 bias is added in the epilogue, which writes 16-byte
-// bf16 vectors.
+// UNet's 128x96 level, ~700 FLOP a byte moved).
+// Design (conv3x3.cuh, mode kHalo): output tiles of Ht x Wt = 128 or 256
+// pixels of one image; each tap's A tile is one 4-D TMA box of the NHWC
+// input whose out-of-image part (the halo) TMA zero-fills, the B tile a box
+// of the HWIO weights read in place; a TMA/mbarrier ring feeds two wgmma
+// consumer warpgroups; persistent blocks; bias and the one bf16 rounding in
+// the register epilogue. The tile shape and N tile come from the wrapper's
+// plan (cuda_conv.py::conv_plan).
 
-#include "common.cuh"
-
-using namespace nvcuda;
-using idm::bf16;
-
-namespace {
-
-constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3, THREADS = 256;
-constexpr int LDA = BK + 8, LDB = BN + 8;
-constexpr int A_STAGE = BM * LDA, B_STAGE = BK * LDB;  // elements
-constexpr size_t SMEM =
-    (size_t)STAGES * (A_STAGE + B_STAGE) * sizeof(bf16) +
-    (size_t)(THREADS / 32) * 256 * sizeof(float);
-
-__global__ void __launch_bounds__(THREADS)
-    conv3x3_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                   const float* __restrict__ bias, bf16* __restrict__ out,
-                   int B, int H, int W, int Cin, int Cout) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + STAGES * A_STAGE;
-  float* Cs = reinterpret_cast<float*>(Bs + STAGES * B_STAGE);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  // 1-D grid, N tiles fastest: the blocks that share an A tile run together
-  const int n_tiles = idm::cdiv(Cout, BN);
-  const int n0 = (blockIdx.x % n_tiles) * BN;
-  const int m0 = (blockIdx.x / n_tiles) * BM;
-  const int M = B * H * W;
-  const int kc = Cin / BK;  // K chunks per tap
-  const int KT = 9 * kc;
-
-  // the two A rows (output pixels) and 16-byte chunks this thread copies
-  int a_row[2], a_cc[2], pb[2], py[2], px[2];
-  bool pv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int id = tid + i * THREADS;
-    a_row[i] = id >> 2;
-    a_cc[i] = id & 3;
-    const int m = m0 + a_row[i];
-    pv[i] = m < M;
-    const int mm = pv[i] ? m : 0;
-    pb[i] = mm / (H * W);
-    const int rem = mm - pb[i] * H * W;
-    py[i] = rem / W;
-    px[i] = rem - py[i] * W;
-  }
-
-  auto load_stage = [&](int stage, int kt) {
-    const int tap = kt / kc, ci0 = (kt - tap * kc) * BK;
-    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    bf16* as = As + stage * A_STAGE;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int yy = py[i] + dy, xx = px[i] + dx;
-      const bool ok = pv[i] && yy >= 0 && yy < H && xx >= 0 && xx < W;
-      const bf16* src =
-          ok ? x + (((size_t)pb[i] * H + yy) * W + xx) * Cin + ci0 + a_cc[i] * 8
-             : x;
-      idm::cp_async16(as + a_row[i] * LDA + a_cc[i] * 8, src, ok);
-    }
-    bf16* bs = Bs + stage * B_STAGE;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int id = tid + i * THREADS;
-      const int r = id >> 4, cc = id & 15;
-      const int n = n0 + cc * 8;
-      const bool ok = n < Cout;
-      const bf16* src = ok ? w + (size_t)(tap * Cin + ci0 + r) * Cout + n : w;
-      idm::cp_async16(bs + r * LDB + cc * 8, src, ok);
-    }
-  };
-
-  const int wm = warp / 4, wn = warp % 4;  // warp tile: 64 rows x 32 cols
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load_stage(s, s);
-    idm::cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    idm::cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int nk = kt + STAGES - 1;
-    if (nk < KT) load_stage(nk % STAGES, nk);
-    idm::cp_async_commit();
-    const bf16* as = As + (kt % STAGES) * A_STAGE;
-    const bf16* bs = Bs + (kt % STAGES) * B_STAGE;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], as + (wm * 64 + i * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], bs + kk * LDB + wn * 32 + j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-  }
-  idm::cp_async_wait<0>();
-
-  // epilogue: one 16x16 fragment at a time through a per-warp fp32 tile
-  float* cs = Cs + warp * 256;
-  const int r = lane >> 1, c8 = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int m = m0 + wm * 64 + i * 16 + r;
-      const int n = n0 + wn * 32 + j * 16 + c8;
-      if (m < M && n < Cout) {
-        float v[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          v[e] = cs[r * 16 + c8 + e] + (bias ? bias[n + e] : 0.f);
-        *reinterpret_cast<uint4*>(out + (size_t)m * Cout + n) = idm::pack8(v);
-      }
-      __syncwarp();
-    }
-}
-
-}  // namespace
+#include "conv3x3.cuh"
 
 extern "C" int idm_conv3x3(const void* x, const void* w, const void* bias,
                            void* out, int B, int H, int W, int Cin, int Cout,
-                           void* stream) {
-  const long M = (long)B * H * W;
-  if (M <= 0) return 0;
-  const long blocks = (M + BM - 1) / BM * idm::cdiv(Cout, BN);
-  if (Cin % BK != 0 || Cout % 8 != 0 || M > 2147483647L ||
-      blocks > 2147483647L)
+                           int bn, int tile_h, int tile_w, void* stream) {
+  using namespace idm_conv;
+  if ((long)B * H * W <= 0) return 0;
+  const int bm = tile_h * tile_w;
+  if (Cin % 8 != 0 || Cout % 8 != 0 || bn <= 0 || tile_h <= 0 ||
+      tile_w <= 0 || tile_w > 256 || tile_h > 256)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = idm::allow_smem(conv3x3_kernel, SMEM);
+  Geom g{};
+  g.H = H, g.W = W, g.Cout = Cout, g.kc = idm::cdiv(Cin, BK);
+  g.tile_h = tile_h, g.tile_w = tile_w;
+  g.tiles_x = idm::cdiv(W, tile_w), g.tiles_y = idm::cdiv(H, tile_h);
+  g.n_tiles = idm::cdiv(Cout, bn);
+  const long tiles = (long)B * g.tiles_y * g.tiles_x * g.n_tiles;
+  if (tiles > 2147483647L) return (int)cudaErrorInvalidValue;
+  g.tiles = (int)tiles;
+  CUtensorMap xmap;
+  const cuuint64_t dims[4] = {(cuuint64_t)Cin, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)Cin * 2, (cuuint64_t)Cin * W * 2,
+                                 (cuuint64_t)Cin * W * H * 2};
+  const cuuint32_t box[4] = {BK, (cuuint32_t)tile_w, (cuuint32_t)tile_h, 1};
+  cudaError_t e = idm::encode_tiled(&xmap, x, 4, dims, strides, box, 128);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((unsigned)blocks);
-  conv3x3_kernel<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<const float*>(bias), static_cast<bf16*>(out), B, H, W, Cin,
-      Cout);
-  return (int)cudaGetLastError();
+  return (int)launch<kHalo>(bm, bn, xmap, w, Cin, bias, out, g,
+                            static_cast<cudaStream_t>(stream));
 }

@@ -17,11 +17,18 @@ kernel takes bf16; the wrappers raise on anything else.
 The JAX package's opt-in ``IDMVTON_CONV_PADACC=1`` variant of the
 ``conv3x3`` sites (``_conv3_kernel_padacc``) is a kernel of its own here,
 ``conv3x3_padacc`` (``csrc/conv3x3_padacc.cu``), with its own count.
+
+Both sources instantiate one templated kernel (``csrc/conv3x3.cuh``: TMA
+boxes, an mbarrier ring, ``wgmma``). ``conv_plan`` picks its launch
+geometry from the shape alone, so every wrapper gives one shape the same
+tiles, and passes it to the C entry point.
 """
 
 from __future__ import annotations
 
+import functools
 import os
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +37,139 @@ from idmvton_tpu_torch.ops import _build
 
 _LANE = 128
 HBLOCK_MIN_BYTES = 32 * 1024 * 1024
+
+BK = 64                      # input channels a K chunk: 128-byte A box rows
+# the (BM output positions, BN output channels) tiles csrc/conv3x3.cuh is
+# built for (its launch<>); BM * BN <= 40960 keeps the accumulators of a
+# consumer thread at <= 160 registers
+TILES = ((128, 128), (128, 160), (128, 256), (256, 128), (256, 160))
+SMS = 132                    # streaming multiprocessors of an H100 SXM
+# TFLOP/s of each tile at shapes it divides, read on an H100 80GB HBM3 at
+# 700 W by scripts/torch_conv_tiles.py: the plan's cost model
+TILE_TFLOPS = {(128, 128): 600, (128, 160): 500, (128, 256): 760,
+               (256, 128): 760, (256, 160): 720}
+INT32_MAX = 2**31 - 1
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class TensorMap(NamedTuple):
+    """A TMA descriptor as the C entry point encodes it: dims and box
+    innermost first, strides in bytes of dims 1.., swizzle span in bytes."""
+    dims: tuple
+    strides: tuple
+    box: tuple
+    swizzle: int
+
+
+class ConvPlan(NamedTuple):
+    bm: int                 # output positions a tile (GEMM rows)
+    bn: int                 # output channels a tile
+    n_tiles: int
+    m_tiles: int
+    tiles: int              # m_tiles * n_tiles, N tiles fastest
+    tile_h: int             # halo kernel: a tile is tile_h x tile_w pixels
+    tile_w: int
+    tiles_per_image: int    # padded kernel: BM-position tiles an image
+    x_map: TensorMap
+    w_map: TensorMap
+
+
+def _pick_tile_hw(h: int, w: int, bm: int) -> tuple:
+    """(tile_h, tile_w) of bm pixels: fewest padded pixels, then the
+    smallest halo footprint, then the wider. 16 x 8 tiles every level of
+    the serving path exactly at bm = 128 (W in 24 .. 768)."""
+    best = None
+    tw = 1
+    while tw <= min(bm, 256):
+        th = bm // tw
+        if th <= 256:
+            key = (_cdiv(h, th) * th * _cdiv(w, tw) * tw,
+                   (th + 2) * (tw + 2), -tw)
+            if best is None or key < best[0]:
+                best = (key, (th, tw))
+        tw *= 2
+    return best[1]
+
+
+def _tile_plan(b, h, w, cin, cout, padded, bm, bn) -> ConvPlan:
+    atom = 64 if bn % 64 == 0 else 32     # B box width: its swizzle span
+    w_map = TensorMap((cout, cin, 9), (2 * cout, 2 * cin * cout),
+                      (atom, BK, 1), 2 * atom)
+    if padded:
+        wp = w + 2
+        tiles_per_image = _cdiv(h * wp, bm)
+        tile_h = tile_w = 0
+        m_tiles = b * tiles_per_image
+        x_map = TensorMap((cin, b * (h + 2) * wp), (2 * cin,), (BK, bm), 128)
+    else:
+        tile_h, tile_w = _pick_tile_hw(h, w, bm)
+        tiles_per_image = 0
+        m_tiles = b * _cdiv(h, tile_h) * _cdiv(w, tile_w)
+        x_map = TensorMap((cin, w, h, b), (2 * cin, 2 * cin * w,
+                                           2 * cin * w * h),
+                          (BK, tile_w, tile_h, 1), 128)
+    n_tiles = _cdiv(cout, bn)
+    return ConvPlan(bm, bn, n_tiles, m_tiles, m_tiles * n_tiles, tile_h,
+                    tile_w, tiles_per_image, x_map, w_map)
+
+
+def _cost(plan: ConvPlan, sms: int) -> float:
+    """Time of the busiest SM, in units of a K chunk: waves of tiles, each
+    BM x BN at its tile's measured rate."""
+    return (_cdiv(plan.tiles, sms) * plan.bm * plan.bn
+            / TILE_TFLOPS[plan.bm, plan.bn])
+
+
+# a request has a few dozen conv shapes and the plan costs ~0.1 ms of host
+# time, about a kernel's time, so each shape is planned once
+@functools.lru_cache(maxsize=1024)
+def conv_plan(b: int, h: int, w: int, cin: int, cout: int,
+              padded: bool = False, tile=None, sms: int = SMS) -> ConvPlan:
+    """Launch geometry of the conv kernel for x (b, h, w, cin) and w (3, 3,
+    cin, cout); ``padded``: the ``conv3x3_padacc`` kernel, whose input is
+    the (b, h+2, w+2, cin) padded copy flattened to rows. The (BM, BN) tile
+    is ``tile`` or, of ``TILES``, the one of least ``_cost`` on ``sms`` SMs
+    (then fewer tiles). Raises where a coordinate or tile index would not
+    fit in int32."""
+    if cin % 8 or cout % 8:
+        raise ValueError(f"conv3x3 kernel needs Cin % 8 == 0 and Cout % 8 "
+                         f"== 0 (16-byte TMA strides), got {cin}, {cout}")
+    if tile is not None:
+        if tuple(tile) not in TILES:
+            raise ValueError(f"conv3x3 kernel: no {tile} tile in {TILES}")
+        plan = _tile_plan(b, h, w, cin, cout, padded, *tile)
+    else:
+        plan = min((_tile_plan(b, h, w, cin, cout, padded, *t)
+                    for t in TILES),
+                   key=lambda p: (_cost(p, sms), p.tiles))
+    # the last row or coordinate a box can reach
+    rows = b * (h + 2) * (w + 2)
+    last = (rows + plan.tiles_per_image * plan.bm + 2 * (w + 2) + 2
+            if padded else max(h, w, b) + 257)
+    if max(plan.tiles, last) > INT32_MAX:
+        raise ValueError(f"conv3x3 kernel: x {(b, h, w, cin)} -> {cout} "
+                         f"overflows its int32 tile or row indices")
+    return plan
+
+
+def _cuda_plan(x, w, padded=False) -> ConvPlan:
+    """The plan of a launch on x's card, after the checks that x is a CUDA
+    bf16 tensor and w its (3, 3, Cin, Cout) kernel."""
+    _build.ptr(x, "x", torch.bfloat16)
+    bsz, h, wdt, cin = x.shape
+    cout = w.shape[-1]
+    if w.shape != (3, 3, cin, cout):
+        raise ValueError(f"conv3x3: x {tuple(x.shape)}, w {tuple(w.shape)}")
+    return conv_plan(bsz, h, wdt, cin, cout, padded=padded,
+                     sms=_sm_count(x.device.index))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def conv3x3_torch(x, w, b=None):
@@ -43,13 +183,9 @@ def conv3x3_torch(x, w, b=None):
 
 
 def _launch(x, w, b):
+    plan = _cuda_plan(x, w)
     bsz, h, wdt, cin = x.shape
     cout = w.shape[-1]
-    if w.shape != (3, 3, cin, cout):
-        raise ValueError(f"conv3x3: x {tuple(x.shape)}, w {tuple(w.shape)}")
-    if cin % 32 or cout % 8:
-        raise ValueError(f"conv3x3 kernel needs Cin % 32 == 0 and "
-                         f"Cout % 8 == 0, got {cin}, {cout}")
     out = torch.empty(bsz, h, wdt, cout, dtype=x.dtype, device=x.device)
     dev = x.device
     bias = None if b is None else b.float()
@@ -58,7 +194,8 @@ def _launch(x, w, b):
                 _build.ptr(w, "w", torch.bfloat16, dev),
                 _build.ptr(bias, "b", torch.float32, dev),
                 _build.ptr(out, "out", torch.bfloat16),
-                bsz, h, wdt, cin, cout, _build.stream_ptr(dev))
+                bsz, h, wdt, cin, cout, plan.bn, plan.tile_h, plan.tile_w,
+                _build.stream_ptr(dev))
     return out
 
 
@@ -84,7 +221,8 @@ conv3x3_hblock.launches = 0
 
 def _shape_ok(x, w) -> bool:
     # the shape part of the JAX predicates (Cin, Cout >= 128, W >= 8) plus
-    # the kernel's own limits: 32-channel K chunks, 8-channel output vectors
+    # Cin % 32 and Cout % 8 (the kernel itself needs only multiples of 8:
+    # 16-byte TMA strides and output vectors)
     if tuple(w.shape[:2]) != (3, 3) or x.dim() != 4:
         return False
     cin, cout, wdt = x.shape[-1], w.shape[-1], x.shape[2]
@@ -111,21 +249,18 @@ def conv_padacc_enabled() -> bool:
 
 
 def conv3x3_padacc(x, w, b=None):
-    """The padded-accumulator variant (``csrc/conv3x3_padacc.cu``) of the
-    same conv: x (B,H,W,Cin) bf16, w (3,3,Cin,Cout) bf16, b (Cout,) or None.
+    """The padded-row variant (``csrc/conv3x3_padacc.cu``) of the same conv:
+    x (B,H,W,Cin) bf16, w (3,3,Cin,Cout) bf16, b (Cout,) or None.
 
     As the TPU variant, it makes one explicit zero-padded copy of x and runs
-    GEMMs over whole padded rows, so no tap needs a halo predicate; each
-    (dy, dx) product is added into an fp32 accumulator shifted by 2 - dx
-    and only output columns [2, 2 + W) of each padded row are kept."""
+    GEMMs over whole padded rows, so no tap needs a halo predicate, on an
+    output indexed on the (W+2)-pitch padded grid whose two margin columns
+    are dropped. The TPU shifted each tap's product into an fp32
+    accumulator; here each tap reads its input rows shifted by
+    dy * (W+2) + dx instead, so all taps share one accumulator."""
+    plan = _cuda_plan(x, w, padded=True)
     bsz, h, wdt, cin = x.shape
     cout = w.shape[-1]
-    if w.shape != (3, 3, cin, cout):
-        raise ValueError(f"conv3x3_padacc: x {tuple(x.shape)}, "
-                         f"w {tuple(w.shape)}")
-    if cin % 32 or cout % 8:
-        raise ValueError(f"conv3x3_padacc kernel needs Cin % 32 == 0 and "
-                         f"Cout % 8 == 0, got {cin}, {cout}")
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))
     out = torch.empty(bsz, h, wdt, cout, dtype=x.dtype, device=x.device)
     dev = x.device
@@ -135,7 +270,9 @@ def conv3x3_padacc(x, w, b=None):
                 _build.ptr(w, "w", torch.bfloat16, dev),
                 _build.ptr(bias, "b", torch.float32, dev),
                 _build.ptr(out, "out", torch.bfloat16),
-                bsz, h, wdt, cin, cout, _build.stream_ptr(dev))
+                bsz, h, wdt, cin, cout, plan.bm, plan.bn,
+                plan.tiles_per_image,
+                _build.stream_ptr(dev))
     conv3x3_padacc.launches += 1
     return out
 

@@ -50,7 +50,9 @@ def busy_us(events):
     return total
 
 
-def profile_step(step, wall_ms):
+def profile_step(step, wall_ms, label="tiny", top_n=8):
+    """Profiles one call of ``step``; the trace goes to
+    ``chiprun_out/{label}_step_trace.json``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -58,7 +60,7 @@ def profile_step(step, wall_ms):
         step()
         torch.cuda.synchronize()
     OUT.mkdir(exist_ok=True)
-    trace = OUT / "tiny_step_trace.json"
+    trace = OUT / f"{label}_step_trace.json"
     prof.export_chrome_trace(str(trace))
     events = [e for e in json.loads(trace.read_text())["traceEvents"]
               if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
@@ -68,17 +70,17 @@ def profile_step(step, wall_ms):
     by_name = {}
     for e in events:
         if e["cat"] == "kernel":
-            name = e["name"][:60]
+            name = e["name"][:90]
             ms, n = by_name.get(name, (0.0, 0))
             by_name[name] = (ms + e["dur"] / 1e3, n + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
     res = {"wall_ms": wall_ms, "device_busy_ms": busy,
            "idle_share": 1 - busy / wall_ms,
            "profiled_device_span_ms": span,
            "kernels": sum(1 for e in events if e["cat"] == "kernel"),
            "top_kernels": [{"name": k, "ms": ms, "calls": n}
                            for k, (ms, n) in top]}
-    smoke.log(f"tiny step: wall {wall_ms:.3f} ms unprofiled, device busy "
+    smoke.log(f"{label} step: wall {wall_ms:.3f} ms unprofiled, device busy "
               f"{busy:.3f} ms ({res['kernels']} kernels), idle share "
               f"{res['idle_share']:.3f}; profiled device span {span:.3f} ms")
     for k, (ms, n) in top:

@@ -96,7 +96,13 @@ def test_gn_stats_kernel(dev, shape, dtype):
 
 @pytest.mark.parametrize("b,h,w,cin,cout,bias", [
     (2, 10, 12, 128, 256, True), (1, 16, 8, 320, 320, True),
-    (3, 7, 9, 256, 128, False), (2, 32, 24, 640, 1280, True)])
+    (3, 7, 9, 256, 128, False), (2, 32, 24, 640, 1280, True),
+    # the wgmma kernel's edges: Cout 320 (160-wide N tiles), 15 and 40
+    # 64-channel chunks a tap, the 32x24 level at batch 4, H and W off the
+    # 16 x 8 tile, a ragged last K chunk (Cin 160)
+    (1, 16, 24, 320, 320, True), (1, 16, 24, 960, 320, True),
+    (1, 8, 24, 2560, 1280, True), (4, 32, 24, 1280, 1280, True),
+    (2, 19, 27, 320, 640, True), (1, 12, 16, 160, 128, False)])
 def test_conv3x3_kernel(dev, b, h, w, cin, cout, bias):
     g = torch.Generator(device=dev).manual_seed(3)
     x = _randn(g, b, h, w, cin, dev=dev)
@@ -192,7 +198,12 @@ def test_cross_attention_small_kv_kernel(dev, d, s_text, s_ip):
 @pytest.mark.parametrize("b,h,w,cin,cout,bias", [
     (1, 16, 24, 128, 256, True), (1, 9, 96, 320, 640, False),
     (2, 7, 24, 1280, 320, True), (1, 5, 96, 640, 128, True),
-    (3, 12, 10, 256, 200, False)])
+    (3, 12, 10, 256, 200, False),
+    # the wgmma kernel's edges: Cin 960 and 2560, the 32x24 level at batch
+    # 4, an image whose last 128-position tile runs past it (9 * 15 = 135),
+    # a ragged last K chunk (Cin 160)
+    (1, 16, 24, 960, 320, True), (2, 9, 13, 2560, 256, True),
+    (4, 32, 24, 1280, 1280, True), (1, 12, 16, 160, 128, False)])
 def test_conv3x3_padacc_kernel(dev, b, h, w, cin, cout, bias):
     g = torch.Generator(device=dev).manual_seed(7)
     x = _randn(g, b, h, w, cin, dev=dev)
