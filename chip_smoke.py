@@ -14,7 +14,9 @@ failure:
    the plain version and, where one PyTorch call computes the same
    function, that call (``library_ms``; the port never makes it) beside
    the kernel's bound (its bytes over the card's memory rate or its
-   operations over the peak rate of their type, the larger);
+   operations over the peak rate of their type, the larger) and, in the
+   log of the attention kernels, their exp floor (logits over
+   ``EXP_RATE``);
 4. one full-width denoise step (GarmentNet, TryonNet, CFG, DDPM step) with
    ``impl="cuda"`` against ``impl="torch"`` on the same inputs;
 5. serve 2 requests through ``TryonPipeline.stepwise_generate`` at
@@ -148,6 +150,11 @@ def errors(got, want):
 # HBM_BPS and its operations over the peak of their type.
 HBM_BPS = 3.35e12
 PEAK = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+# The special-function units' exponentials a second (132 SMs x 16 a clock
+# at ~1.83 GHz; the FlashAttention-3 paper's 3.9 TFLOPS): an attention
+# case's exp floor is its logits (one exponential each) over this rate, a
+# figure beside its bound, not part of it.
+EXP_RATE = 3.9e12
 
 
 def kernel_cases(dev):
@@ -158,7 +165,9 @@ def kernel_cases(dev):
     ``library`` (one PyTorch call computing the same function on the same
     inputs, timed beside the kernel and used nowhere in the port, or None)
     and optionally ``vs`` (another function to hold the kernel against
-    without a gate) or ``time`` (one to time beside it)."""
+    without a gate), ``time`` (one to time beside it) or ``exps`` (the
+    exponentials an attention kernel takes: its logits, for the exp
+    floor)."""
     import torch
     import torch.nn.functional as F
     from idmvton_tpu_torch.ops import cuda_attention as A
@@ -216,7 +225,8 @@ def kernel_cases(dev):
                                                        heads=heads),
                     lambda: A.cross_attention_small_kv_torch(q, kv, kv_ip,
                                                              heads=heads),
-                    [q, kv, kv_ip], 4 * b * n * hd * ctx)
+                    [q, kv, kv_ip], 4 * b * n * hd * ctx,
+                    exps=b * heads * n * ctx)
 
     def lnorm_case(shape):
         x = rn(*shape)
@@ -252,8 +262,8 @@ def kernel_cases(dev):
     def bhsd(t):
         return t.transpose(1, 2).contiguous()
 
-    def flash_gemm_case(b, n, heads, garment, uncond):
-        hd, d = heads * 64, 64
+    def flash_gemm_case(b, n, heads, garment, uncond, d=64):
+        hd = heads * d
         qkv = rn(b, n, 3 * hd)
         kv = rn(b - uncond, n, 2 * hd) if garment else None
         q, k, v = (bhsd(qkv[..., i * hd:(i + 1) * hd].reshape(b, n, heads, d))
@@ -271,6 +281,7 @@ def kernel_cases(dev):
                     lambda: A.flash_attention_gemm_torch(qkv, kv, heads=heads,
                                                          uncond_rows=uncond),
                     [qkv, kv], 4 * heads * d * n * keys,
+                    exps=heads * n * keys,
                     library=lambda: F.scaled_dot_product_attention(q, k, v))
 
     def flash_case(b, n, heads, d, m):
@@ -295,6 +306,7 @@ def kernel_cases(dev):
         return case(f"q{(b, n, heads, d)} over {n + m} keys"
                     f"{' (concat KV)' if m else ''}", kern, plain, ins,
                     4 * b * heads * n * (n + m) * d,
+                    exps=b * heads * n * (n + m),
                     library=lambda: F.scaled_dot_product_attention(qt, kt, vt))
 
     def fused_case(b, st, heads, d, s_own):
@@ -305,6 +317,7 @@ def kernel_cases(dev):
                     lambda: A.flash_attention_fused_qkv(qkv, s_own),
                     lambda: A.flash_attention_fused_qkv_torch(qkv, s_own),
                     [qkv], 4 * b * heads * s_own * st * d,
+                    exps=b * heads * s_own * st,
                     library=lambda: F.scaled_dot_product_attention(qt, kt, vt))
 
     csrc = "idmvton_tpu_torch/ops/csrc/"
@@ -339,7 +352,10 @@ def kernel_cases(dev):
          "idmvton_tpu/ops/pallas_attention.py:356", sdpa, [
              flash_gemm_case(4, 3072, 10, True, 2),
              flash_gemm_case(4, 768, 20, True, 2),
-             flash_gemm_case(2, 3072, 10, False, 0)]),
+             flash_gemm_case(2, 3072, 10, False, 0),
+             flash_gemm_case(2, 768, 20, False, 0),
+             # the tiny UNet's 128-wide level (8 heads of 16), TryonNet
+             flash_gemm_case(4, 768, 8, True, 2, d=16)]),
         ("ln_linear_i8", csrc + "ln_linear_i8.cu",
          "idmvton_tpu/ops/pallas_norm.py:380",
          "none: no PyTorch call fuses LayerNorm, int8 quantization and an "
@@ -411,6 +427,8 @@ def check_kernels(dev):
                 (abs_err, err), tol = errors(got, want), BF16_TOL
             t_bytes = 1e3 * nbytes(c["ins"], got) / HBM_BPS
             t_ops = 1e3 * c["ops"] / PEAK[c["rate"]]
+            if "exps" in c:   # on record in the log, not in the kernels line
+                aside += f", exp floor {1e3 * c['exps'] / EXP_RATE:.4f} ms"
             del got, want
             # in turns: plain, kernel, kernel, plain
             p1 = cuda_time_ms(plain)

@@ -25,14 +25,13 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("ln_linear.cu", "ln_linear_i8.cu", "gn_stats.cu", "conv3x3.cu",
            "conv3x3_padacc.cu", "flash_attention_gemm.cu",
            "cross_attention_small_kv.cu", "flash_attention.cu")
-HEADERS = ("common.cuh", "conv3x3.cuh")
+HEADERS = ("common.cuh", "conv3x3.cuh", "flash_attention.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_L = ctypes.c_longlong
 # C entry points: name -> argtypes (all return int, a cudaError_t)
 SIGNATURES = {
     "idm_ln_linear": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
@@ -44,16 +43,24 @@ SIGNATURES = {
     # ... B, H, W, Cin, Cout, then the plan: bm, bn, tiles_per_image
     "idm_conv3x3_padacc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _P],
-    "idm_flash_attention_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                 _F, _I, _P],
+    # ... B, N, M, H, D, sink_tokens, scale, fixed_shift, then the plan (an
+    # int64 array: cuda_attention.AttentionPlan.c_plan)
+    "idm_flash_attention_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+                                 _P, _P],
     "idm_cross_attention_small_kv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                      _F, _F, _P],
-    "idm_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _L, _L, _L, _L, _L, _L, _L, _L, _F, _P],
+    # q, k, v, garment k, v, out, B, Sq, Skv, M, H, D, scale, then the plan
+    "idm_flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _F, _P, _P],
 }
 
+# -D flags of the library that ``lib()`` builds and binds: none for the
+# port; scripts/torch_attention_tiles.py sets the attention kernel's other
+# ring depths, turn-taking and tiles
+DEFINES: tuple = ()
+
 _lock = threading.Lock()
-_lib = None
+_libs = {}
 
 
 def nvcc() -> str:
@@ -67,21 +74,22 @@ def nvcc() -> str:
     return found
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(defines=()) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(defines)).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"libidmvton_kernels_{_digest()}.so"
+def library_path(defines=()) -> Path:
+    return BUILD_DIR / f"libidmvton_kernels_{_digest(defines)}.so"
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the sources (in parallel) and link the shared library."""
-    out = library_path()
+def build(verbose: bool = False, defines=()) -> Path:
+    """Compile the sources (in parallel) with the -D flags ``defines`` and
+    link the shared library."""
+    out = library_path(defines)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -90,7 +98,7 @@ def build(verbose: bool = False) -> Path:
     extra = ["-Xptxas", "-v"] if verbose else []
     for name in SOURCES:
         obj = BUILD_DIR / f"{Path(name).stem}_{tag}.o"
-        cmd = [nvcc(), *NVCC_FLAGS, *extra, "-c", str(CSRC / name),
+        cmd = [nvcc(), *NVCC_FLAGS, *defines, *extra, "-c", str(CSRC / name),
                "-o", str(obj)]
         procs.append((name, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -117,19 +125,19 @@ def build(verbose: bool = False) -> Path:
 
 
 def lib() -> ctypes.CDLL:
-    """The bound kernel library, built on first use."""
-    global _lib
+    """The bound kernel library of ``DEFINES``, built on first use."""
+    defines = DEFINES
     with _lock:
-        if _lib is None:
-            handle = ctypes.CDLL(str(build()))
+        if defines not in _libs:
+            handle = ctypes.CDLL(str(build(defines=defines)))
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             handle.idm_error_string.argtypes = [ctypes.c_int]
             handle.idm_error_string.restype = ctypes.c_char_p
-            _lib = handle
-    return _lib
+            _libs[defines] = handle
+        return _libs[defines]
 
 
 def ptr(t, name: str, dtype, device=None, *, contiguous: bool = True) -> int:

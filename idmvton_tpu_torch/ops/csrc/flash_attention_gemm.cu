@@ -15,283 +15,72 @@
 // for logits <= 60 and the denominator cannot overflow fp32; online-max is
 // the classical rescaled softmax. Output is merged heads (B, N, H*D).
 //
-// What bounds it on the H100: tensor-core work plus the softmax's exp
-// (N x (N + M) logits per head: 3072 x 6144 x 10 heads x 4 rows at the
-// 640-channel level).
-// Design: one block of 4 warps per (64-query tile, head, batch row); each
-// warp owns 16 query rows end to end, so its row softmax stays inside the
-// warp. K/V tiles of 64 tokens stream through a 2-stage cp.async ring
-// (own tiles, then garment tiles); rows past N or M are zero-filled, so
-// masked columns carry V = 0 and p = 0 (never garbage * 0 = NaN). S = QK^T
-// and O += PV are bf16 WMMA products with fp32 accumulation; S goes through
-// a per-warp fp32 tile where lane pairs take a row each for the mask,
-// exp and row sums, and P returns as bf16. The online-max path rescales O
-// through the same per-warp tile.
+// What bounds it on the H100: tensor-core work (4 * D FLOP a logit) and, as
+// much, the softmax's exponentials: N x (N + M) logits a head, 3072 x 6144 x
+// 10 heads x 4 rows at the 640-channel level.
+// Design (flash_attention.cuh, flash_gemm_kernel): TMA boxes read Q, K and V
+// in place from the to_qkv output and the garment K|V from kv_ref (ragged
+// key tiles zero-filled), a producer warp keeps an mbarrier ring of K/V
+// tiles full, two or three consumer warpgroups of 64 queries each run
+// S = QK^T and O += PV as wgmma with the softmax between them in registers
+// (ex2.approx on logits pre-scaled by log2 e), taking turns at the matrix
+// unit. The
+// instance (padded D, BKV, consumer warpgroups), the grid and the tensor
+// maps come from the wrapper's plan (cuda_attention.py::attention_plan).
 
-#include "common.cuh"
+#include "flash_attention.cuh"
 
-using namespace nvcuda;
-using idm::bf16;
+using namespace idm_attn;
 
 namespace {
 
-constexpr int BQ = 64, BKV = 64, WARPS = 4, THREADS = WARPS * 32;
-constexpr float CLAMP = 60.f;   // pallas_attention.py::_FIXED_SHIFT_CLAMP
-constexpr float NEG = -1e30f;
-
-template <int D>
-struct Layout {
-  static constexpr int LDQ = D + 8;          // Q / K / V tiles (bf16)
-  static constexpr int LDS = BKV + 4;        // S tile (fp32)
-  static constexpr int LDP = BKV + 8;        // P tile (bf16)
-  static constexpr int LDO = D + 4;          // O tile (fp32)
-  static constexpr int Q_ELEMS = BQ * LDQ;
-  static constexpr int KV_ELEMS = BKV * LDQ;
-  static constexpr size_t Q_OFF = 0;
-  static constexpr size_t K_OFF = Q_OFF + Q_ELEMS * sizeof(bf16);
-  static constexpr size_t V_OFF = K_OFF + 2 * KV_ELEMS * sizeof(bf16);
-  static constexpr size_t S_OFF = V_OFF + 2 * KV_ELEMS * sizeof(bf16);
-  static constexpr size_t P_OFF = S_OFF + WARPS * 16 * LDS * sizeof(float);
-  static constexpr size_t O_OFF = P_OFF + WARPS * 16 * LDP * sizeof(bf16);
-  static constexpr size_t BYTES = O_OFF + WARPS * 16 * LDO * sizeof(float);
+struct Launch {
+  const CUtensorMap* q_map;
+  const CUtensorMap* kv_map;
+  const CUtensorMap* garm_map;
+  bf16* out;
+  const Args* a;
+  int grid;
+  cudaStream_t st;
+  template <int DP, int BKV, int WGS>
+  cudaError_t operator()(size_t smem) const {
+    auto kernel = flash_gemm_kernel<DP, BKV, WGS>;
+    // once an instance: the most a block of it may take
+    static const cudaError_t e = idm::allow_smem(kernel, SMEM_LIMIT);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, 128 * (WGS + 1), smem, st>>>(*q_map, *kv_map, *garm_map,
+                                                out, *a);
+    return cudaGetLastError();
+  }
 };
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-    flash_gemm_kernel(const bf16* __restrict__ qkv,
-                      const bf16* __restrict__ kv_ref, bf16* __restrict__ out,
-                      int N, int M, int H, int uncond_rows, int sink_tokens,
-                      float scale, int fixed_shift) {
-  using L = Layout<D>;
-  constexpr int CH = D / 8;  // 16-byte chunks per head row
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::Q_OFF);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::K_OFF);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::V_OFF);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float* Sw = reinterpret_cast<float*>(smem + L::S_OFF) + warp * 16 * L::LDS;
-  bf16* Pw = reinterpret_cast<bf16*>(smem + L::P_OFF) + warp * 16 * L::LDP;
-  float* Ow = reinterpret_cast<float*>(smem + L::O_OFF) + warp * 16 * L::LDO;
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int HD = H * D;
-  const size_t ld_qkv = 3 * (size_t)HD, ld_kv = 2 * (size_t)HD;
-  const bool has_garm = kv_ref != nullptr;
-  const bool uncond = has_garm && b < uncond_rows;
-  const int own_tiles = idm::cdiv(N, BKV);
-  const int tiles = own_tiles + ((has_garm && !uncond) ? idm::cdiv(M, BKV) : 0);
-  const float sink = (float)sink_tokens + (uncond ? (float)M : 0.f);
-
-  for (int i = tid; i < BQ * CH; i += THREADS) {
-    const int r = i / CH, c = i % CH, n = q0 + r;
-    const bool ok = n < N;
-    const bf16* src = ok ? qkv + ((size_t)b * N + n) * ld_qkv + h * D + c * 8
-                         : qkv;
-    idm::cp_async16(Qs + r * L::LDQ + c * 8, src, ok);
-  }
-  idm::cp_async_commit();
-
-  auto load_kv = [&](int stage, int t) {
-    const bf16* base;
-    size_t ld;
-    int row0, limit, koff, voff;
-    if (t < own_tiles) {
-      base = qkv + (size_t)b * N * ld_qkv;
-      ld = ld_qkv;
-      row0 = t * BKV;
-      limit = N;
-      koff = HD + h * D;
-      voff = 2 * HD + h * D;
-    } else {
-      base = kv_ref + (size_t)(b - uncond_rows) * M * ld_kv;
-      ld = ld_kv;
-      row0 = (t - own_tiles) * BKV;
-      limit = M;
-      koff = h * D;
-      voff = HD + h * D;
-    }
-    bf16* ks = Ks + stage * L::KV_ELEMS;
-    bf16* vs = Vs + stage * L::KV_ELEMS;
-    for (int i = tid; i < BKV * CH; i += THREADS) {
-      const int r = i / CH, c = i % CH, j = row0 + r;
-      const bool ok = j < limit;
-      const bf16* row = base + (size_t)(ok ? j : 0) * ld;
-      idm::cp_async16(ks + r * L::LDQ + c * 8, ok ? row + koff + c * 8 : qkv,
-                      ok);
-      idm::cp_async16(vs + r * L::LDQ + c * 8, ok ? row + voff + c * 8 : qkv,
-                      ok);
-    }
-  };
-
-  load_kv(0, 0);
-  idm::cp_async_commit();
-
-  // lane pair (2r, 2r+1) owns row r of the warp's 16; each half 32 columns
-  const int r = lane >> 1, half = lane & 1;
-  float m_i = sink > 0.f ? 0.f : NEG;
-  float l_i = sink;
-
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf[D / 16];
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> of[D / 16];
-#pragma unroll
-  for (int d = 0; d < D / 16; ++d) wmma::fill_fragment(of[d], 0.f);
-
-  for (int t = 0; t < tiles; ++t) {
-    if (t + 1 < tiles) load_kv((t + 1) & 1, t + 1);
-    idm::cp_async_commit();
-    idm::cp_async_wait<1>();
-    __syncthreads();
-    if (t == 0) {
-#pragma unroll
-      for (int d = 0; d < D / 16; ++d)
-        wmma::load_matrix_sync(qf[d], Qs + warp * 16 * L::LDQ + d * 16, L::LDQ);
-    }
-    const bf16* ks = Ks + (t & 1) * L::KV_ELEMS;
-    const bf16* vs = Vs + (t & 1) * L::KV_ELEMS;
-
-    // S = Q K^T for this warp's 16 rows x 64 keys
-#pragma unroll
-    for (int j = 0; j < BKV / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-      wmma::fill_fragment(s, 0.f);
-#pragma unroll
-      for (int d = 0; d < D / 16; ++d) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, ks + j * 16 * L::LDQ + d * 16, L::LDQ);
-        wmma::mma_sync(s, qf[d], kf, s);
-      }
-      wmma::store_matrix_sync(Sw + j * 16, s, L::LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    const int key0 = (t < own_tiles ? t * BKV : (t - own_tiles) * BKV) +
-                     half * 32;
-    const int limit = t < own_tiles ? N : M;
-    const float* srow = Sw + r * L::LDS + half * 32;
-    bf16* prow = Pw + r * L::LDP + half * 32;
-    float v[32];
-    float tmax = NEG;
-#pragma unroll
-    for (int e = 0; e < 32; ++e) {
-      v[e] = key0 + e < limit ? srow[e] * scale : NEG;
-      tmax = fmaxf(tmax, v[e]);
-    }
-    float alpha = 1.f, psum = 0.f;
-    if (fixed_shift) {
-#pragma unroll
-      for (int e = 0; e < 32; ++e) {
-        v[e] = expf(fminf(v[e], CLAMP));
-        psum += v[e];
-      }
-    } else {
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-      const float m_new = fmaxf(m_i, tmax);
-      alpha = expf(m_i - m_new);
-      m_i = m_new;
-#pragma unroll
-      for (int e = 0; e < 32; ++e) {
-        v[e] = expf(v[e] - m_new);
-        psum += v[e];
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < 32; e += 2)
-      *reinterpret_cast<__nv_bfloat162*>(prow + e) =
-          __floats2bfloat162_rn(v[e], v[e + 1]);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l_i = alpha * l_i + psum;
-
-    if (!fixed_shift) {  // O *= alpha per row, through the warp's O tile
-#pragma unroll
-      for (int d = 0; d < D / 16; ++d)
-        wmma::store_matrix_sync(Ow + d * 16, of[d], L::LDO, wmma::mem_row_major);
-      __syncwarp();
-      for (int c = half * (D / 2); c < (half + 1) * (D / 2); ++c)
-        Ow[r * L::LDO + c] *= alpha;
-      __syncwarp();
-#pragma unroll
-      for (int d = 0; d < D / 16; ++d)
-        wmma::load_matrix_sync(of[d], Ow + d * 16, L::LDO, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // O += P V
-#pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
-      wmma::load_matrix_sync(pf, Pw + kk * 16, L::LDP);
-#pragma unroll
-      for (int d = 0; d < D / 16; ++d) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-        wmma::load_matrix_sync(vf, vs + kk * 16 * L::LDQ + d * 16, L::LDQ);
-        wmma::mma_sync(of[d], pf, vf, of[d]);
-      }
-    }
-    __syncthreads();  // the next iteration refills this stage
-  }
-  idm::cp_async_wait<0>();
-
-  // O / l -> merged-head output
-#pragma unroll
-  for (int d = 0; d < D / 16; ++d)
-    wmma::store_matrix_sync(Ow + d * 16, of[d], L::LDO, wmma::mem_row_major);
-  __syncwarp();
-  const int n = q0 + warp * 16 + r;
-  if (n < N) {
-    const float inv = 1.f / fmaxf(l_i, 1e-30f);
-    bf16* dst = out + ((size_t)b * N + n) * HD + h * D;
-    for (int c = half * (D / 2); c < (half + 1) * (D / 2); c += 8) {
-      float f[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) f[e] = Ow[r * L::LDO + c + e] * inv;
-      *reinterpret_cast<uint4*>(dst + c) = idm::pack8(f);
-    }
-  }
-}
-
-template <int D>
-int launch(const bf16* qkv, const bf16* kv_ref, bf16* out, int B, int N,
-           int M, int H, int uncond_rows, int sink_tokens, float scale,
-           int fixed_shift, cudaStream_t stream) {
-  const size_t smem = Layout<D>::BYTES;
-  cudaError_t e = idm::allow_smem(flash_gemm_kernel<D>, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(idm::cdiv(N, BQ), H, B);
-  flash_gemm_kernel<D><<<grid, THREADS, smem, stream>>>(
-      qkv, kv_ref, out, N, M, H, uncond_rows, sink_tokens, scale, fixed_shift);
-  return (int)cudaGetLastError();
-}
 
 }  // namespace
 
+// qkv (B, N, 3*H*D), kv_ref (B - uncond_rows, M, 2*H*D) or NULL, out (B,
+// N, H*D), all bf16; then the plan (flash_attention.cuh's Plan): its maps
+// q (the to_qkv output boxed by BQ rows), k = v (boxed by BKV) and the
+// garment k = v over kv_ref (absent when no row reads it).
 extern "C" int idm_flash_attention_gemm(const void* qkv, const void* kv_ref,
                                         void* out, int B, int N, int M, int H,
-                                        int D, int uncond_rows,
-                                        int sink_tokens, float scale,
-                                        int fixed_shift, void* stream) {
+                                        int D, int sink_tokens, float scale,
+                                        int fixed_shift, const void* plan,
+                                        void* stream) {
   if (B <= 0 || N <= 0) return 0;
-  if (H > 65535 || B > 65535 || (kv_ref != nullptr && M <= 0) ||
-      uncond_rows < 0 || uncond_rows > B)
-    return (int)cudaErrorInvalidValue;
-  const bf16* q = static_cast<const bf16*>(qkv);
-  const bf16* g = static_cast<const bf16*>(kv_ref);
-  bf16* o = static_cast<bf16*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16:
-      return launch<16>(q, g, o, B, N, M, H, uncond_rows, sink_tokens, scale,
-                        fixed_shift, st);
-    case 32:
-      return launch<32>(q, g, o, B, N, M, H, uncond_rows, sink_tokens, scale,
-                        fixed_shift, st);
-    case 64:
-      return launch<64>(q, g, o, B, N, M, H, uncond_rows, sink_tokens, scale,
-                        fixed_shift, st);
-    case 128:
-      return launch<128>(q, g, o, B, N, M, H, uncond_rows, sink_tokens, scale,
-                         fixed_shift, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+  const Plan& p = *static_cast<const Plan*>(plan);
+  Args a = make_args(p, N, N, M, B, H, D, scale);
+  a.sink = (float)sink_tokens;
+  a.fixed_shift = fixed_shift;
+  CUtensorMap q_map, kv_map, garm_map;
+  cudaError_t e = encode_map(&q_map, qkv, p, 0);
+  if (e == cudaSuccess) e = encode_map(&kv_map, qkv, p, 1);
+  if (e == cudaSuccess) {
+    if (p.garm_tiles > 0)
+      e = encode_map(&garm_map, kv_ref, p, 3);
+    else
+      garm_map = kv_map;  // never read
   }
+  if (e != cudaSuccess) return (int)e;
+  Launch launch{&q_map, &kv_map, &garm_map, static_cast<bf16*>(out), &a,
+                (int)p.grid, static_cast<cudaStream_t>(stream)};
+  return (int)dispatch(p, launch);
 }

@@ -29,12 +29,20 @@ the Pallas ``_flash_kernel`` / ``_flash_kernel_fused``) take (B, S, H, D)
 heads of any D = 8..128 (a multiple of 8), read through their strides; the
 self-attention of head layouts ``flash_attention_gemm`` does not take runs
 them. Plain versions: the ``*_torch`` functions (JAX ``_xla_ref_bhsd``).
+
+Both attention sources instantiate one templated kernel
+(``csrc/flash_attention.cuh``: TMA boxes, an mbarrier ring, ``wgmma`` with
+the softmax in registers). ``attention_plan`` decides its launch geometry
+from the shape alone -- the instance, the grid and every tensor map -- and
+the C entry points encode and launch what it gives them.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -42,12 +50,171 @@ from idmvton_tpu_torch.ops import _build
 from idmvton_tpu_torch.ops.attention import (
     attend, concat_kv_attention, sdpa, softmax_,
 )
+from idmvton_tpu_torch.ops.cuda_conv import (
+    INT32_MAX, SMS, TensorMap, _sm_count,
+)
 
 _LANE = 128
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 # up to this many keys the JAX flash_attention takes its XLA einsum path
 # (the default of pallas_attention.py:45)
 XLA_KV_CUTOFF = 256
+
+
+# ---------------------------------------------------------------------------
+# the launch plan of csrc/flash_attention.cuh
+# ---------------------------------------------------------------------------
+
+# keys a K/V tile by padded head dim DP (KERNEL_HEAD_DIMS, the kernel's DP
+# instances): the fastest of scripts/torch_attention_tiles.py's
+# sweep at the path's shapes (D = 16 and 64, both softmax modes, read on an
+# H100 80GB HBM3 at 700 W), with the ring depth (3) and the consumers'
+# turn-taking (on) that flash_attention.cuh fixes; D = 32 and 128 reach no
+# path shape and take their neighbours'
+BKV = {16: 128, 32: 128, 64: 128, 128: 64}
+# (DP, BKV, consumer warpgroups) the kernel is built for
+# (flash_attention.cuh::dispatch): BKV's tile with the 2 or 3 warpgroups
+# the plan weighs. A block holds 64 queries a consumer warpgroup; three
+# leave a consumer 160 registers, too few for DP = 128
+INSTANCES = frozenset([(16, 128, 2), (16, 128, 3), (32, 128, 2),
+                       (32, 128, 3), (64, 128, 2), (64, 128, 3),
+                       (128, 64, 2)])
+# Three warpgroups ran at 490 TFLOP/s where two ran at 430 (D = 64, fixed
+# shift, the same sweep), but a 192-query tile quantizes a short sequence
+# into a wave more: the plan takes the warpgroups of fewer waves x tile
+# time at these rates
+WGS_TFLOPS = {2: 430, 3: 490}
+# TMA limits: a dimension below 2**32 elements, a stride below 2**40 bytes
+_TMA_DIM, _TMA_STRIDE = 2**32, 2**40
+
+
+class AttentionPlan(NamedTuple):
+    dp: int                 # padded head dim: the kernel's DP instance
+    bkv: int                # keys a K/V tile
+    wgs: int                # consumer warpgroups: 64 queries each
+    q_tiles: int            # 64 * wgs-query tiles of a (batch row, head)
+    grid: int               # blocks: q_tiles x heads x batch, query fastest
+    own_tiles: int          # K/V tiles over the own keys
+    garm_tiles: int         # and over the garment keys (rows >= uncond)
+    uncond: int             # leading rows of the analytic garment sink
+    heads0: tuple           # head coordinates of Q, K, V, garment K, V
+    q_map: TensorMap        # dims (D, heads, rows, batch), innermost first
+    k_map: TensorMap
+    v_map: TensorMap
+    kg_map: Optional[TensorMap]   # garment K / V (None: no garment read)
+    vg_map: Optional[TensorMap]
+    c_plan: ctypes.Array    # all of the above as the C entry points read it
+
+
+def _heads_map(d, dp, heads, rows, batch, row_stride, batch_stride,
+               box_rows) -> TensorMap:
+    """Head columns of a (batch, rows, heads, d) view with head stride d,
+    boxed (min(dp, 64), 1, box_rows, 1) under the swizzle of the box row
+    (TMA zero-fills the columns past d)."""
+    box = min(dp, 64)
+    return TensorMap((d, heads, rows, batch),
+                     (2 * d, 2 * row_stride, 2 * batch_stride),
+                     (box, 1, box_rows, 1), 2 * box)
+
+
+def _c_plan(fields, maps) -> ctypes.Array:
+    """flash_attention.cuh's Plan: the int64 fields, then each map's dims,
+    byte strides, box and swizzle (zeros where there is no map)."""
+    vals = list(fields)
+    for t in maps:
+        vals += [*t.dims, *t.strides, *t.box, t.swizzle] if t else [0] * 12
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+@functools.lru_cache(maxsize=1024)
+def attention_plan(b: int, sq: int, skv: int, heads: int, d: int, *,
+                   m: int = 0, uncond_rows: int = 0, strides=None,
+                   tile=None, sms: int = SMS) -> AttentionPlan:
+    """Launch geometry of the attention kernel. ``strides`` None: the
+    ``flash_attention_gemm`` layout, q/k/v the sections of a (b, sq, 3 *
+    heads * d) to_qkv output (skv == sq) and, for m > 0, a garment K|V
+    (b - uncond_rows, m, 2 * heads * d); else the (batch, row) element
+    strides of q, k and v (and, for m > 0, of the garment k and v, (b, m,
+    heads, d) keys after skv), (b, sq|skv, heads, d) views with head stride
+    d. The tile (BKV, consumer warpgroups) is ``tile`` or ``BKV``'s for the
+    padded head dim with the warpgroups of least waves on ``sms`` SMs x
+    tile time (``WGS_TFLOPS``). Raises on what the kernel cannot take; a
+    forced tile that the library was not built with raises at launch."""
+    if d % 8 or not 8 <= d <= 128:
+        raise ValueError(f"attention kernel: head dim {d} (a multiple of 8 "
+                         f"up to 128)")
+    if min(b, sq, skv, heads) < 1 or m < 0:
+        raise ValueError(f"attention kernel: b {b}, sq {sq}, skv {skv}, "
+                         f"heads {heads}, m {m}")
+    dp = next(p for p in KERNEL_HEAD_DIMS if p >= d)
+    if tile is None:
+        wgs = min((w for w in (3, 2) if (dp, BKV[dp], w) in INSTANCES),
+                  key=lambda w: (-(-b * heads * -(-sq // (64 * w)) // sms)
+                                 * w / WGS_TFLOPS[w]))
+        tile = (BKV[dp], wgs)
+    if len(tile) != 2:
+        raise ValueError(f"attention kernel: tile {tile} is not (BKV, "
+                         f"consumer warpgroups)")
+    bkv, wgs = tile
+    # the kernel's template: BKV 64 or 128, 2 or 3 consumer warpgroups, 2
+    # at DP = 128 (registers)
+    if bkv not in (64, 128) or wgs not in (2, 3) or (dp == 128 and wgs > 2):
+        raise ValueError(f"attention kernel: no instance (D {dp}, BKV {bkv},"
+                         f" {wgs} warpgroups)")
+    bq = 64 * wgs
+    garm_rows = 0
+    if strides is None:
+        if skv != sq:
+            raise ValueError(f"attention kernel: the to_qkv layout has "
+                             f"skv == sq, got {skv} != {sq}")
+        if not 0 <= uncond_rows <= b:
+            raise ValueError(f"attention kernel: uncond_rows {uncond_rows} "
+                             f"of {b}")
+        ld = 3 * heads * d
+        q_map = _heads_map(d, dp, 3 * heads, sq, b, ld, sq * ld, bq)
+        k_map = v_map = _heads_map(d, dp, 3 * heads, sq, b, ld, sq * ld, bkv)
+        kg_map = vg_map = None
+        if m > 0 and uncond_rows < b:
+            garm_rows = b - uncond_rows
+            kg_map = vg_map = _heads_map(d, dp, 2 * heads, m, garm_rows,
+                                         2 * heads * d, 2 * heads * d * m,
+                                         bkv)
+        heads0 = (0, heads, 2 * heads, 0, heads)
+    else:
+        if uncond_rows:
+            raise ValueError("attention kernel: uncond rows are the to_qkv "
+                             "layout's")
+        if (len(strides) != (10 if m else 6)
+                or any(st % 8 or st < 0 for st in strides)):
+            raise ValueError(f"attention kernel: strides {strides} are not "
+                             f"{10 if m else 6} multiples of 8")
+        qb, qr, kb, kr, vb, vr = strides[:6]
+        q_map = _heads_map(d, dp, heads, sq, b, qr, qb, bq)
+        k_map = _heads_map(d, dp, heads, skv, b, kr, kb, bkv)
+        v_map = _heads_map(d, dp, heads, skv, b, vr, vb, bkv)
+        kg_map = vg_map = None
+        if m:
+            garm_rows = b
+            kg_map = _heads_map(d, dp, heads, m, b, strides[7], strides[6],
+                                bkv)
+            vg_map = _heads_map(d, dp, heads, m, b, strides[9], strides[8],
+                                bkv)
+        heads0 = (0, 0, 0, 0, 0)
+    for tmap in (q_map, k_map, v_map, kg_map, vg_map):
+        if tmap is not None and (max(tmap.dims) >= _TMA_DIM
+                                 or max(tmap.strides) >= _TMA_STRIDE):
+            raise ValueError(f"attention kernel: a tensor map of dims "
+                             f"{tmap.dims} exceeds TMA's limits")
+    q_tiles = -(-sq // bq)
+    grid = q_tiles * heads * b
+    if grid > INT32_MAX:
+        raise ValueError(f"attention kernel: {grid} blocks overflow int32")
+    fields = (dp, bkv, wgs, q_tiles, grid, -(-skv // bkv),
+              -(-m // bkv) if garm_rows else 0, uncond_rows if m else 0,
+              heads0)
+    maps = (q_map, k_map, v_map, kg_map, vg_map)
+    return AttentionPlan(*fields, *maps,
+                         _c_plan(fields[:-1] + heads0, maps))
 
 
 # ---------------------------------------------------------------------------
@@ -90,7 +257,10 @@ def _flash_strides(t, name: str, heads: int, d: int):
     return sb, sr
 
 
-def _flash_launch(q, k, v, scale):
+def _flash_launch(q, k, v, scale, tile=None, k_ref=None, v_ref=None):
+    """Launches the kernel on (B, S, H, D) views, over k / v then (when
+    given) k_ref / v_ref; ``tile`` forces the plan's (BKV, consumer
+    warpgroups), as scripts/torch_attention_tiles.py does."""
     b, sq, heads, d = q.shape
     if d % 8 or not 8 <= d <= 128:
         raise ValueError(f"flash_attention kernel: head dim {d} (a multiple "
@@ -99,18 +269,27 @@ def _flash_launch(q, k, v, scale):
     if tuple(k.shape) != (b, skv, heads, d) or k.shape != v.shape or skv < 1:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
-    strides = [*_flash_strides(q, "q", heads, d),
-               *_flash_strides(k, "k", heads, d),
-               *_flash_strides(v, "v", heads, d)]
-    out = torch.empty(b, sq, heads, d, dtype=q.dtype, device=q.device)
+    views = [("q", q), ("k", k), ("v", v)]
+    m = 0
+    if k_ref is not None:
+        m = k_ref.shape[1]
+        if (tuple(k_ref.shape) != (b, m, heads, d)
+                or k_ref.shape != v_ref.shape or m < 1):
+            raise ValueError(f"k_ref {tuple(k_ref.shape)} / v_ref "
+                             f"{tuple(v_ref.shape)} do not match q "
+                             f"{tuple(q.shape)}")
+        views += [("k_ref", k_ref), ("v_ref", v_ref)]
+    strides = tuple(st for name, t in views
+                    for st in _flash_strides(t, name, heads, d))
     dev = q.device
-    _build.call("idm_flash_attention",
-                _build.ptr(q, "q", torch.bfloat16, contiguous=False),
-                _build.ptr(k, "k", torch.bfloat16, dev, contiguous=False),
-                _build.ptr(v, "v", torch.bfloat16, dev, contiguous=False),
-                _build.ptr(out, "out", torch.bfloat16),
-                b, sq, skv, heads, d, *strides, *out.stride()[:2],
-                float(scale), _build.stream_ptr(dev))
+    ptrs = [_build.ptr(t, name, torch.bfloat16, dev, contiguous=False)
+            for name, t in views] + [None] * (5 - len(views))
+    plan = attention_plan(b, sq, skv, heads, d, m=m, strides=strides,
+                          tile=tile, sms=_sm_count(dev.index))
+    out = torch.empty(b, sq, heads, d, dtype=q.dtype, device=dev)
+    _build.call("idm_flash_attention", *ptrs,
+                _build.ptr(out, "out", torch.bfloat16), b, sq, skv, m, heads,
+                d, float(scale), plan.c_plan, _build.stream_ptr(dev))
     return out
 
 
@@ -134,11 +313,18 @@ flash_attention.launches = 0
 
 def flash_attention_concat_kv(q, k, v, k_ref, v_ref, *,
                               scale: Optional[float] = None):
-    """q against [own KV | garment KV] on the sequence axis: the two K/V
-    tensors are concatenated (as the JAX function does), then
-    ``flash_attention``."""
-    return flash_attention(q, torch.cat([k, k_ref], 1),
-                           torch.cat([v, v_ref], 1), scale=scale)
+    """q against [own KV | garment KV] on the sequence axis, as the JAX
+    function's concatenation then ``flash_attention``: up to
+    ``XLA_KV_CUTOFF`` keys in all the plain formula, above it the kernel,
+    which reads the garment K/V as a second key segment (no concatenated
+    copy) and counts as a ``flash_attention`` launch."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if k.shape[1] + k_ref.shape[1] <= XLA_KV_CUTOFF:
+        return flash_attention_concat_kv_torch(q, k, v, k_ref, v_ref,
+                                               scale=scale)
+    out = _flash_launch(q, k, v, scale, k_ref=k_ref, v_ref=v_ref)
+    flash_attention.launches += 1
+    return out
 
 
 def flash_attention_fused_qkv(qkv, s_own: int, *,
@@ -192,6 +378,20 @@ def flash_attention_gemm(qkv, kv_ref=None, *, heads: int,
                          fixed_shift: bool = True):
     """qkv (B, N, 3*H*D) bf16; kv_ref (B - uncond_rows, M, 2*H*D) bf16 or
     None. Returns (B, N, H*D) bf16."""
+    out = _gemm_launch(qkv, kv_ref, heads, scale, sink_tokens, uncond_rows,
+                       fixed_shift)
+    flash_attention_gemm.launches += 1
+    return out
+
+
+flash_attention_gemm.launches = 0
+
+
+def _gemm_launch(qkv, kv_ref, heads, scale, sink_tokens, uncond_rows,
+                 fixed_shift, tile=None):
+    """Launches the kernel on a to_qkv output; ``tile`` forces the plan's
+    (BKV, consumer warpgroups), as scripts/torch_attention_tiles.py
+    does."""
     b, n, three_hd = qkv.shape
     hd = three_hd // 3
     d = hd // heads
@@ -206,19 +406,17 @@ def flash_attention_gemm(qkv, kv_ref=None, *, heads: int,
         if tuple(kv_ref.shape) != want:
             raise ValueError(f"kv_ref {tuple(kv_ref.shape)}, expected {want}")
     scale = scale if scale is not None else d ** -0.5
-    out = torch.empty(b, n, hd, dtype=qkv.dtype, device=qkv.device)
     dev = qkv.device
-    _build.call("idm_flash_attention_gemm",
-                _build.ptr(qkv, "qkv", torch.bfloat16),
-                _build.ptr(kv_ref, "kv_ref", torch.bfloat16, dev),
+    ptrs = (_build.ptr(qkv, "qkv", torch.bfloat16),
+            _build.ptr(kv_ref, "kv_ref", torch.bfloat16, dev))
+    plan = attention_plan(b, n, n, heads, d, m=m, uncond_rows=uncond_rows,
+                          tile=tile, sms=_sm_count(dev.index))
+    out = torch.empty(b, n, hd, dtype=qkv.dtype, device=dev)
+    _build.call("idm_flash_attention_gemm", *ptrs,
                 _build.ptr(out, "out", torch.bfloat16),
-                b, n, m, heads, d, int(uncond_rows), int(sink_tokens),
-                float(scale), int(fixed_shift), _build.stream_ptr(dev))
-    flash_attention_gemm.launches += 1
+                b, n, m, heads, d, int(sink_tokens), float(scale),
+                int(fixed_shift), plan.c_plan, _build.stream_ptr(dev))
     return out
-
-
-flash_attention_gemm.launches = 0
 
 
 def flash_attention_gemm_supported(qkv, heads: int) -> bool:

@@ -15,9 +15,9 @@ agree to a few bf16 ulps: max |kernel - plain| <= 2e-2 * max |plain|.
 The W8A8 kernel and its plain version sum the same int8 products exactly;
 they differ only where an fp32 LayerNorm rounding flips one code, far
 inside the same bound.
-The flash attention kernel (#9, #10) casts the unnormalized probabilities
-to bf16 for the PV product and its plain version the normalized ones: the
-same bf16 bound.
+The flash attention kernels (#4, #9, #10) cast the unnormalized
+probabilities to bf16 for the PV product and their plain versions the
+normalized ones: the same bf16 bound.
 The GroupNorm statistics are fp32 sums in another order (deterministic,
 no atomics): max error <= 1e-5 * max |sum of squares|.
 """
@@ -136,6 +136,87 @@ def test_flash_attention_gemm_kernel(dev, d, garment, uncond, sink, fixed):
         qkv, kv, heads=heads, sink_tokens=sink, uncond_rows=uncond)
     torch.cuda.synchronize()
     assert got.shape == (b, n, heads * d)
+    assert _rel_err(got, want) <= BF16_TOL
+
+
+# flash_attention_gemm's four path shapes at full width (TryonNet and
+# GarmentNet at the 640 and 1280 levels), every row uncond, and the tiny
+# UNet's 128-wide level (8 heads of 16)
+@pytest.mark.parametrize("fixed", [True, False])
+@pytest.mark.parametrize("b,n,heads,d,garment,uncond", [
+    (4, 3072, 10, 64, True, 2), (4, 768, 20, 64, True, 2),
+    (2, 3072, 10, 64, False, 0), (2, 768, 20, 64, False, 0),
+    (4, 768, 20, 64, True, 4), (4, 768, 8, 16, True, 2)])
+def test_flash_attention_gemm_path_shapes(dev, b, n, heads, d, garment,
+                                          uncond, fixed):
+    g = torch.Generator(device=dev).manual_seed(9)
+    hd = heads * d
+    qkv = _randn(g, b, n, 3 * hd, dev=dev)
+    kv = _randn(g, b - uncond, n, 2 * hd, dev=dev) if garment else None
+    before = cuda_attention.flash_attention_gemm.launches
+    got = cuda_attention.flash_attention_gemm(qkv, kv, heads=heads,
+                                              uncond_rows=uncond,
+                                              fixed_shift=fixed)
+    want = cuda_attention.flash_attention_gemm_torch(qkv, kv, heads=heads,
+                                                     uncond_rows=uncond)
+    torch.cuda.synchronize()
+    assert got.shape == (b, n, hd)
+    assert cuda_attention.flash_attention_gemm.launches == before + 1
+    assert _rel_err(got, want) <= BF16_TOL
+
+
+@pytest.mark.parametrize("d,tile", [
+    (dp, (bkv, wgs)) for dp, bkv, wgs in sorted(cuda_attention.INSTANCES)])
+def test_attention_kernel_every_tile(dev, d, tile):
+    """Each instance the kernel is built for (every padded head dim with
+    its BKV and 2 or 3 consumer warpgroups), forced through the plan, at
+    ragged query and key tiles, both layouts and both softmax modes."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    b, n, m, heads = 3, 200, 130, 4
+    qkv = _randn(g, b, n, 3 * heads * d, dev=dev, scale=1.5)
+    kv = _randn(g, b - 1, m, 2 * heads * d, dev=dev, scale=1.5)
+    want = cuda_attention.flash_attention_gemm_torch(qkv, kv, heads=heads,
+                                                     uncond_rows=1)
+    for fixed in (True, False):
+        got = cuda_attention._gemm_launch(qkv, kv, heads, None, 0, 1, fixed,
+                                          tile)
+        assert _rel_err(got, want) <= BF16_TOL
+    q, k, v = (qkv[..., i * heads * d:(i + 1) * heads * d].reshape(
+        b, n, heads, d) for i in range(3))
+    got = cuda_attention._flash_launch(q, k, v, d ** -0.5, tile)
+    want = cuda_attention.flash_attention_torch(q, k, v)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= BF16_TOL
+
+
+@pytest.mark.parametrize("scale", [None, -0.2])
+@pytest.mark.parametrize("b,sq,heads,d,m", [
+    (4, 3072, 4, 16, 3072), (2, 3072, 4, 16, 0)])
+def test_flash_attention_tiny_path_shapes(dev, b, sq, heads, d, m, scale):
+    """The tiny UNet's 64-wide level: the split heads of a to_qkv output
+    over own then garment keys (flash_attention_concat_kv) and over their
+    own (self-attention), sliced from a longer buffer (a batch stride that
+    is not S * row stride); a negative scale takes the kernel's generic
+    row max."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    hd = heads * d
+    buf = _randn(g, b, 2 * sq, 3 * hd, dev=dev)
+    qkv = buf[:, :sq]
+    assert qkv.stride(0) != sq * qkv.stride(1)
+    q, k, v = (qkv[..., i * hd:(i + 1) * hd].reshape(b, sq, heads, d)
+               for i in range(3))
+    before = cuda_attention.flash_attention.launches
+    if m:   # the garment K/V read as the kernel's second key segment
+        kg, vg = (_randn(g, b, m, heads, d, dev=dev) for _ in range(2))
+        got = cuda_attention.flash_attention_concat_kv(q, k, v, kg, vg,
+                                                       scale=scale)
+        want = cuda_attention.flash_attention_concat_kv_torch(
+            q, k, v, kg, vg, scale=scale)
+    else:
+        got = cuda_attention.flash_attention(q, k, v, scale=scale)
+        want = cuda_attention.flash_attention_torch(q, k, v, scale=scale)
+    torch.cuda.synchronize()
+    assert cuda_attention.flash_attention.launches == before + 1
     assert _rel_err(got, want) <= BF16_TOL
 
 
