@@ -10,18 +10,27 @@ failure:
    set the TF32 flags off (fp32 products in full fp32 on both sides);
 2. build the kernels from ``idmvton_tpu_torch/ops/csrc`` with nvcc;
 3. hold each of the eleven kernel entry points against its plain PyTorch
-   version at the shapes its path gives it (bf16), and time the kernel,
-   the plain version and, where one PyTorch call computes the same
-   function, that call (``library_ms``; the port never makes it) beside
-   the kernel's bound (its bytes over the card's memory rate or its
-   operations over the peak rate of their type, the larger) and, in the
-   log of the attention kernels, their exp floor (logits over
-   ``EXP_RATE``);
-4. one full-width denoise step (GarmentNet, TryonNet, CFG, DDPM step) with
-   ``impl="cuda"`` against ``impl="torch"`` on the same inputs;
+   version at the shapes its path gives it (bf16; the conv kernels also on
+   the fp32 decode's fp32 activations), and time the kernel, the plain
+   version and, where one PyTorch call computes the same function, that
+   call (``library_ms``; the port never makes it) beside the kernel's
+   bound (its bytes over the card's memory rate or its operations over the
+   peak rate of their type, the larger) and, in the log of the attention
+   kernels, their exp floor (logits over ``EXP_RATE``); each kernel and
+   library call is timed eagerly and as 10 launches in a CUDA graph
+   (``graph_ms``, ``library_graph_ms``: the device alone);
+4. give the full-width stack random biases and norm affines from the seed
+   (the init zeroes them, which would hide a bias or scale/shift fault),
+   then one full-width denoise step (GarmentNet, TryonNet, CFG, DDPM step)
+   with ``impl="cuda"`` against ``impl="torch"`` on the same inputs, and
+   one more with ``IDMVTON_FLASH_FIXED_SHIFT=0`` (the attention kernel's
+   online softmax at every site);
 5. serve 2 requests through ``TryonPipeline.stepwise_generate`` at
    768x1024, batch 2, 30 steps, CFG 2.0, garment_cache="every_step", on
    the full SDXL try-on stack with seeded random weights (the bf16 path);
+   then one fp32 VAE decode (``VAEConfig.force_upcast``) of a full-width
+   latent through the conv and GroupNorm statistics kernels, every conv
+   site on a kernel, against the bf16 decode;
 6. the inference CLI's batch loop (``cli.infer.run``, with its
    BatchLoader, tokenizers and ip_pixels resize) over one in-memory batch
    of 2 synthetic VITON-HD samples on the same stack: uint8 images, the
@@ -31,7 +40,8 @@ failure:
    ff.proj_in, GarmentNet's ff.proj_in), set ``IDMVTON_CROSS_KERNEL=1`` and
    ``IDMVTON_CONV_PADACC=1``, hold one full-width step with ``impl="cuda"``
    against ``impl="torch"``, and serve 2 more requests (the variant path);
-8. the CLI's ``--tiny`` mode (``cli.infer.load_models``, then ``run`` at
+8. the CLI's ``--tiny`` mode (``cli.infer.load_models``, random biases and
+   norm affines, then ``run`` at
    768x1024, batch 2, 30 steps): one tiny step with ``impl="cuda"``
    against ``impl="torch"``, then a batch, whose 64-wide level runs
    ``flash_attention`` (kernel #9) 10 times a step;
@@ -66,19 +76,25 @@ GN_TOL = 5e-5
 # places (~140 kernel sites) and the differences random-walk; on the variant
 # path W8A8 (kernels) and weight-only int8 (plain) also differ in math, yet
 # read the same: noise prediction max rel 3.2e-2 to 4.0e-2, mean rel
-# 1.67e-2 to 1.75e-2 on an H100. The max is set by a few outliers and hardly
-# moves under a fault; the mean bound catches a 5% output error of the W8A8
-# kernel at every site (2.77e-2) and a lost IP branch (0.23).
+# 1.67e-2 to 1.75e-2 on an H100 on the init's parameters, max rel 3.2e-2 to
+# 3.5e-2, mean rel 1.85e-2 to 1.96e-2 with random biases and norm affines
+# (phase 4). The max is set by a few outliers and hardly moves under a
+# fault; the mean bound caught a 5% output error of the W8A8 kernel at every
+# site (2.77e-2) and a lost IP branch (0.23) on the init's parameters.
 STEP_TOLS = {"noise_pred": (8e-2, 2.5e-2), "latent": (5e-2, None)}
 # The tiny step (UNetConfig.tiny at 768x1024), impl="cuda" against "torch",
-# read max rel 2.40e-2, mean rel 2.12e-2 on the noise prediction (latent
-# 7.8e-3) on an H100; the bounds take the full-width ratios: 2x the max and
-# 1.4x the mean. scripts/torch_tiny_step_probe.py planted faults where
-# flash_attention launches kernel #9 (clean 3.26e-2 / 2.26e-2 from its
-# seed): output x1.05 read mean rel 3.47e-2 (caught), x1.02 2.53e-2 (missed),
-# the garment KV dropped 0.47 (caught); the max stayed under its bound for
-# both scalings.
-TINY_STEP_TOLS = {"noise_pred": (5e-2, 3e-2), "latent": (5e-2, None)}
+# with random biases and norm affines (phase 8) reads mean rel 2.97e-2 to
+# 3.00e-2 and max rel 3.3e-2 to 4.4e-2 on the noise prediction (latent
+# ~7e-3) on an H100 (the init's zero biases and unit norms read mean rel
+# 2.1e-2 to 2.3e-2). scripts/torch_tiny_step_probe.py planted faults under
+# the same affines: the ln_linear bias dropped at its 24 sites read mean
+# rel 6.95e-2 (max 8.3e-2), the LayerNorm shift dropped at its 60 sites
+# 8.64e-2 (8.6e-2), the garment KV dropped 0.417 (0.36); the
+# flash_attention output x1.05 3.20e-2 and x1.02 3.03e-2. The bounds sit at
+# 1.33x the clean mean and 1.36x the largest clean max: they catch the
+# bias, shift and KV faults and no longer a 5% output error at kernel #9,
+# which reads within 8% of a clean run.
+TINY_STEP_TOLS = {"noise_pred": (6e-2, 4e-2), "latent": (5e-2, None)}
 # UNetConfig.tiny: widths (32, 64, 128), transformer depth (0, 1, 2), head
 # dim 16, 2 layers a block. The 64-wide level has 4 heads (H*D = 64, not a
 # multiple of 128, so not flash_attention_gemm) and 2 down + 3 up blocks a
@@ -95,6 +111,15 @@ TINY_FLASH_PER_STEP = 10
 # kernel unseen. The tiny CLI batch (read on an H100, PR 3): 860 and 1.
 CONV_PER_REQUEST = {"conv3x3": 1999, "conv3x3_hblock": 32}
 TINY_CONV_PER_BATCH = {"conv3x3": 860, "conv3x3_hblock": 1}
+# The fp32 decode's mean rel (mean |fp32 - bf16| / mean |bf16|) against the
+# bf16 decode of the same latent: the two differ by bf16 rounding at every
+# layer of the decoder, so the bound is loose; it catches a kernel that
+# drops or garbles the fp32 path, not a few ulps
+DECODE_FP32_MEAN_REL = 5e-2
+# Random biases ~ N(0, AFFINE_STD^2) and norm scales ~ 1 + N(0,
+# AFFINE_STD^2), shifts ~ N(0, AFFINE_STD^2) (tests/test_torch_affine.py's
+# values), drawn on the card from the seed
+AFFINE_STD = 0.1
 # the kernels each serving path must launch, and no others
 BF16_PATH = ("ln_linear", "fused_layer_norm", "gn_spatial_stats", "conv3x3",
              "conv3x3_hblock", "flash_attention_gemm")
@@ -108,6 +133,7 @@ PATH_KERNELS = {
     # 128-wide level and mid block take ln_linear and flash_attention_gemm,
     # one VAE conv takes conv3x3_hblock) besides flash_attention
     "tiny": BF16_PATH + ("flash_attention",),
+    "decode_fp32": ("conv3x3", "conv3x3_hblock", "gn_spatial_stats"),
 }
 
 
@@ -132,6 +158,51 @@ def cuda_time_ms(fn, iters: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 10, reps: int = 3) -> float:
+    """Device ms a call: ``iters`` calls captured in one CUDA graph and
+    replayed ``reps`` times (no host pace between launches)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del g
+    return start.elapsed_time(end) / (iters * reps)
+
+
+def random_affine_(module, seed: int):
+    """Overwrites every bias (of the layers that have one) with N(0,
+    AFFINE_STD^2) and every norm's scale with 1 + N(0, AFFINE_STD^2), from
+    ``seed``, in place (tests/test_torch_affine.py's ``random_affine`` on
+    the modules: this script imports nothing of tests/)."""
+    import torch
+    from idmvton_tpu_torch.models.layers import Norm
+    p0 = next(module.parameters())
+    gen = torch.Generator(device=p0.device).manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            for name, p in m.named_parameters(recurse=False):
+                if name not in ("bias", "scale") or p is None:
+                    continue
+                if name == "scale" and not isinstance(m, Norm):
+                    continue
+                r = torch.randn(p.shape, generator=gen, device=p.device)
+                r.mul_(AFFINE_STD)
+                if name == "scale":
+                    r.add_(1.0)
+                p.copy_(r)
 
 
 def errors(got, want):
@@ -186,15 +257,22 @@ def kernel_cases(dev):
                     rate=rate, tol=tol, library=library, **extra)
 
     def ln_case(m_shape, c, n, geglu, bias):
+        """As the path calls it: to_qkv / to_q have no bias, ff.proj_in a
+        bf16 one (which the kernel widens). Beside it, the two-call
+        yardstick F.layer_norm then torch.mm (cuBLAS): no one call fuses
+        them."""
         x = rn(*m_shape, c)
         gam, bet = rn(c, dtype=torch.float32) * 0.1 + 1, rn(c, dtype=torch.float32) * 0.1
         w = rn(c, n * (2 if geglu else 1), scale=c ** -0.5)
-        b = rn(w.shape[1], dtype=torch.float32) * 0.1 if bias else None
+        b = rn(w.shape[1]) * 0.1 if bias else None
+        g16, b16, x2 = gam.to(x.dtype), bet.to(x.dtype), x.reshape(-1, c)
         return case(f"x{tuple(m_shape) + (c,)} w{tuple(w.shape)}"
                     f"{' geglu' if geglu else ''}",
                     lambda: N.ln_linear(x, gam, bet, w, b, geglu=geglu),
                     lambda: N.ln_linear_torch(x, gam, bet, w, b, geglu=geglu),
-                    [x, gam, bet, w, b], 2 * x.numel() * w.shape[1])
+                    [x, gam, bet, w, b], 2 * x.numel() * w.shape[1],
+                    time=("layer_norm+mm", lambda: torch.mm(
+                        F.layer_norm(x2, (c,), g16, b16, 1e-5), w)))
 
     def ln_i8_case(m_shape, c, n, geglu, bias):
         x = rn(*m_shape, c)
@@ -244,19 +322,25 @@ def kernel_cases(dev):
                     lambda: N.gn_spatial_stats_torch(x), [x],
                     3 * x.numel(), rate="fp32", tol="gn")
 
-    def conv_case(fn, b, h, w, cin, cout):
-        x = rn(b, h, w, cin)
+    def conv_case(fn, b, h, w, cin, cout, dtype=torch.bfloat16):
+        """bf16, or an fp32 x with the bf16 weights (the fp32 decode):
+        then fp32 out against the fp32 plain version, with cuDNN's TF32 off
+        (phase 1), and cuDNN in fp32 as the library call."""
+        x = rn(b, h, w, cin, dtype=dtype)
         k = rn(3, 3, cin, cout, scale=(9 * cin) ** -0.5)
         bias = rn(cout) * 0.1
         xc = x.permute(0, 3, 1, 2)     # channels_last NCHW views
-        kc = k.permute(3, 2, 0, 1).contiguous(
+        kc = k.to(dtype).permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
+        bc = bias.to(dtype)
         extra = ({"time": ("conv3x3", lambda: CV.conv3x3(x, k, bias))}
                  if fn is CV.conv3x3_padacc else {})
-        return case(f"x{(b, h, w, cin)} -> {cout}", lambda: fn(x, k, bias),
+        fp32 = " fp32" if dtype == torch.float32 else ""
+        return case(f"x{(b, h, w, cin)}{fp32} -> {cout}",
+                    lambda: fn(x, k, bias),
                     lambda: CV.conv3x3_torch(x, k, bias), [x, k, bias],
                     2 * b * h * w * 9 * cin * cout,
-                    library=lambda: F.conv2d(xc, kc, bias, padding=1),
+                    library=lambda: F.conv2d(xc, kc, bc, padding=1),
                     **extra)
 
     def bhsd(t):
@@ -329,7 +413,18 @@ def kernel_cases(dev):
              ln_case((4, 3072), 640, 1920, False, False),
              ln_case((4, 768), 1280, 1280, False, False),
              ln_case((4, 3072), 640, 2560, True, True),
-             ln_case((4, 768), 1280, 5120, True, True)]),
+             ln_case((4, 768), 1280, 5120, True, True),
+             # TryonNet's other two, GarmentNet's (B = 2; its to_qkv takes
+             # fused_layer_norm), the tiny UNet's 128-wide level
+             ln_case((4, 3072), 640, 640, False, False),
+             ln_case((4, 768), 1280, 3840, False, False),
+             ln_case((2, 3072), 640, 640, False, False),
+             ln_case((2, 3072), 640, 2560, True, True),
+             ln_case((2, 768), 1280, 1280, False, False),
+             ln_case((2, 768), 1280, 5120, True, True),
+             ln_case((4, 768), 128, 384, False, False),
+             ln_case((4, 768), 128, 128, False, False),
+             ln_case((4, 768), 128, 512, True, True)]),
         ("fused_layer_norm", csrc + "ln_linear.cu",
          "idmvton_tpu/ops/pallas_norm.py:26", "F.layer_norm", [
              lnorm_case((2, 3072, 640)), lnorm_case((2, 768, 1280))]),
@@ -343,11 +438,18 @@ def kernel_cases(dev):
              conv_case(CV.conv3x3, 4, 128, 96, 320, 320),
              conv_case(CV.conv3x3, 4, 64, 48, 640, 640),
              conv_case(CV.conv3x3, 4, 32, 24, 1280, 1280),
-             conv_case(CV.conv3x3, 4, 128, 96, 960, 320)]),
+             conv_case(CV.conv3x3, 4, 128, 96, 960, 320),
+             # the fp32 decode's 128x96 level
+             conv_case(CV.conv3x3, 2, 128, 96, 512, 512, torch.float32)]),
         ("conv3x3_hblock", csrc + "conv3x3.cu",
          "idmvton_tpu/ops/pallas_conv.py:187", "F.conv2d (cuDNN)", [
              conv_case(CV.conv3x3_hblock, 6, 1024, 768, 128, 128),
-             conv_case(CV.conv3x3_hblock, 2, 512, 384, 512, 256)]),
+             conv_case(CV.conv3x3_hblock, 2, 512, 384, 512, 256),
+             # the fp32 decode's 512x384 and 1024x768 levels
+             conv_case(CV.conv3x3_hblock, 2, 512, 384, 512, 256,
+                       torch.float32),
+             conv_case(CV.conv3x3_hblock, 2, 1024, 768, 128, 128,
+                       torch.float32)]),
         ("flash_attention_gemm", csrc + "flash_attention_gemm.cu",
          "idmvton_tpu/ops/pallas_attention.py:356", sdpa, [
              flash_gemm_case(4, 3072, 10, True, 2),
@@ -407,8 +509,9 @@ def check_kernels(dev):
     results = {}
     for name, source, replaces, library, cases in kernel_cases(dev):
         worst_abs, worst_rel = 0.0, 0.0
-        ms = plain_ms = bound_ms = bytes_bound_ms = 0.0
+        ms = plain_ms = bound_ms = bytes_bound_ms = g_ms = 0.0
         lib_ms = 0.0 if cases[0]["library"] is not None else None
+        lib_g_ms = None if lib_ms is None else 0.0
         extra_ms = {}
         for c in cases:
             kern, plain = c["kern"], c["plain"]
@@ -436,11 +539,16 @@ def check_kernels(dev):
             k2 = cuda_time_ms(kern)
             p2 = cuda_time_ms(plain)
             k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            kg_ms = graph_ms(kern)
+            g_ms += kg_ms
+            aside += f", graph {kg_ms:.4f} ms"
             if c["library"] is not None:
                 l_ms = (cuda_time_ms(c["library"])
                         + cuda_time_ms(c["library"])) / 2
+                lg_ms = graph_ms(c["library"])
                 lib_ms += l_ms
-                aside += f", library {l_ms:.4f} ms"
+                lib_g_ms += lg_ms
+                aside += f", library {l_ms:.4f} ms (graph {lg_ms:.4f})"
             if "time" in c:
                 other, fn = c["time"]
                 o_ms = (cuda_time_ms(fn) + cuda_time_ms(fn)) / 2
@@ -465,6 +573,7 @@ def check_kernels(dev):
                          "bound_by": ("bytes" if 2 * bytes_bound_ms >= bound_ms
                                       else "operations"),
                          "library_ms": lib_ms, "library": library,
+                         "graph_ms": g_ms, "library_graph_ms": lib_g_ms,
                          "shapes": len(cases)}
         results[name].update({f"{k}_ms": v for k, v in extra_ms.items()})
     return results
@@ -550,6 +659,82 @@ def check_step(pipe, inputs, gen, path, tols=None):
                                   and not mean_rel <= mean_tol):
             fail(f"{path} denoise step: {what} cuda vs torch "
                  f"max rel error {err}, mean rel error {mean_rel}")
+
+
+def check_online_softmax_step(pipe, inputs, gen):
+    """``check_step`` with ``IDMVTON_FLASH_FIXED_SHIFT=0``: every
+    flash_attention_gemm launch of the cuda impl must take the online-max
+    softmax (the site's ``fixed_shift`` argument, recorded as it runs)."""
+    from idmvton_tpu_torch.models import attention as site
+    real = site.flash_attention_gemm
+    modes = []
+
+    def spy(*args, **kw):
+        modes.append(kw["fixed_shift"])
+        return real(*args, **kw)
+
+    os.environ["IDMVTON_FLASH_FIXED_SHIFT"] = "0"
+    site.flash_attention_gemm = spy
+    try:
+        check_step(pipe, inputs, gen, "bf16 online softmax")
+    finally:
+        site.flash_attention_gemm = real
+        os.environ["IDMVTON_FLASH_FIXED_SHIFT"] = "1"
+    log(f"bf16 online softmax step: {len(modes)} flash_attention_gemm "
+        f"launches, fixed_shift {sorted(set(modes))}")
+    if not modes or any(modes):
+        fail(f"online softmax step: flash_attention_gemm modes {set(modes)}"
+             f" over {len(modes)} launches, expected only False")
+
+
+def check_decode_fp32(models, wrappers, gen):
+    """One full-width latent (BATCH, 128, 96, 4) decoded in bf16, then in
+    fp32 (``VAEConfig.force_upcast``): the fp32 decode must launch the conv
+    and GroupNorm statistics kernels at every site the bf16 decode does
+    (conv3x3 and conv3x3_hblock together: the fp32 activations' size moves
+    sites between them) and no other kernel, give finite fp32 images of
+    (BATCH, HEIGHT, WIDTH, 3), and stay within DECODE_FP32_MEAN_REL of the
+    bf16 decode. Returns the fp32 decode's launch counts."""
+    import dataclasses
+    import torch
+    vae = models.vae
+    ds = vae.cfg.downscale
+    z = torch.randn(BATCH, HEIGHT // ds, WIDTH // ds, vae.cfg.latent_channels,
+                    generator=gen, device=gen.device).to(torch.bfloat16)
+    runs = {}
+    cfg = vae.cfg
+    try:
+        for name, upcast in (("bf16", False), ("fp32", True)):
+            vae.cfg = dataclasses.replace(cfg, force_upcast=upcast)
+            for w in wrappers.values():
+                w.launches = 0
+            t0 = time.perf_counter()
+            img = vae.decode(z)
+            torch.cuda.synchronize()
+            runs[name] = (img, {k: w.launches for k, w in wrappers.items()})
+            log(f"decode {name}: {time.perf_counter() - t0:.3f} s, "
+                f"{img.dtype} {tuple(img.shape)}")
+    finally:
+        vae.cfg = cfg
+    (img16, c16), (img32, c32) = runs["bf16"], runs["fp32"]
+    counts = gate_launches(wrappers, "decode_fp32",
+                           {"gn_spatial_stats": c16["gn_spatial_stats"]})
+    sites = c16["conv3x3"] + c16["conv3x3_hblock"]
+    if c32["conv3x3"] + c32["conv3x3_hblock"] != sites:
+        fail(f"decode fp32: {c32['conv3x3']} + {c32['conv3x3_hblock']} conv "
+             f"launches, not the bf16 decode's {sites} sites")
+    if (img32.dtype != torch.float32
+            or tuple(img32.shape) != (BATCH, HEIGHT, WIDTH, 3)
+            or not bool(torch.isfinite(img32).all())):
+        fail(f"decode fp32: {img32.dtype} {tuple(img32.shape)}, finite "
+             f"{bool(torch.isfinite(img32).all())}")
+    d = (img32 - img16.float()).abs()
+    mean_rel = float(d.mean() / img16.float().abs().mean())
+    log(f"decode fp32 vs bf16: mean rel {mean_rel:.3e} (bound "
+        f"{DECODE_FP32_MEAN_REL:g}), max abs {float(d.max()):.3e}")
+    if not mean_rel <= DECODE_FP32_MEAN_REL:
+        fail(f"decode fp32: mean rel {mean_rel} to the bf16 decode")
+    return counts
 
 
 def serve_requests(pipe, inputs, gen, wrappers, path, exact=None):
@@ -714,6 +899,8 @@ def main():
         from idmvton_tpu_torch.pipeline.tryon import TryonModels, TryonPipeline
         t0 = time.perf_counter()
         models = TryonModels.init(SEED, device=dev, dtype=torch.bfloat16)
+        for i, module in enumerate(models.components().values()):
+            random_affine_(module, SEED + 10 + i)
         torch.cuda.synchronize()
         n_params = sum(p.numel() for m in models.components().values()
                        for p in m.parameters())
@@ -726,11 +913,15 @@ def main():
 
         # -- phase 4: one denoise step, kernels vs plain ---------------------
         check_step(pipe, inputs, gen, "bf16")
+        check_online_softmax_step(pipe, inputs, gen)
 
         # -- phase 5: serve 2 requests through the bf16 path -----------------
         counts = {"bf16": serve_requests(
             pipe, inputs, gen, wrappers, "bf16",
             exact={k: 2 * n for k, n in CONV_PER_REQUEST.items()})}
+
+        # -- the fp32 decode (VAEConfig.force_upcast) -------------------------
+        counts["decode_fp32"] = check_decode_fp32(models, wrappers, gen)
 
         # -- phase 6: the CLI's batch loop at full width ---------------------
         args = infer.parse_args(["--data_dir", "-"])
@@ -767,6 +958,8 @@ def main():
         args = infer.parse_args(["--data_dir", "-", "--tiny",
                                  "--device", "cuda"])
         tiny = infer.load_models(args, torch.bfloat16)
+        for i, module in enumerate(tiny.components().values()):
+            random_affine_(module, SEED + 30 + i)
         built = infer.build(args, tiny)
         check_step(built[0], make_inputs(tiny, dev, gen), gen, "tiny",
                    TINY_STEP_TOLS)

@@ -11,8 +11,10 @@ Projections are stored fused as in the JAX package (``to_qkv``; ``to_q`` +
 fuse into their GEMMs (``ln_linear``), GarmentNet's emitted LayerNorm runs
 ``fused_layer_norm`` and self-attention runs ``flash_attention_gemm`` --
 each where the JAX package takes the Pallas kernel, under the same shape
-predicates. Self-attention over head layouts ``flash_attention_gemm`` does
-not take (H*D not a multiple of 128, as at the tiny UNet's 64-wide level)
+predicates; its softmax mode is ``IDMVTON_FLASH_FIXED_SHIFT`` (or a failed
+``calibrate_fixed_shift``), read at every call as JAX reads it.
+Self-attention over head layouts ``flash_attention_gemm`` does not take
+(H*D not a multiple of 128, as at the tiny UNet's 64-wide level)
 goes through ``sdpa`` / ``concat_kv_attention`` with the caller's impl, so
 on CUDA it runs ``flash_attention`` above 256 keys. Cross-attention (77
 text + 16 IP tokens) stays plain, as the JAX package leaves it to XLA,
@@ -41,8 +43,9 @@ from idmvton_tpu_torch.ops.attention import (
     concat_kv_attention, decoupled_ip_attention, sdpa,
 )
 from idmvton_tpu_torch.ops.cuda_attention import (
-    cross_attention_small_kv, cross_attention_small_kv_supported,
-    flash_attention_gemm, flash_attention_gemm_supported,
+    _fixed_shift, cross_attention_small_kv,
+    cross_attention_small_kv_supported, flash_attention_gemm,
+    flash_attention_gemm_supported,
 )
 from idmvton_tpu_torch.ops.cuda_norm import (
     fused_layer_norm, ln_linear, ln_linear_i8, ln_linear_supported,
@@ -117,7 +120,8 @@ class SelfAttention(nn.Module):
                                      f" is not the cond half of batch {b}")
                 uncond = b // 2
             out = flash_attention_gemm(qkv, kv_g, heads=heads,
-                                       uncond_rows=uncond)
+                                       uncond_rows=uncond,
+                                       fixed_shift=_fixed_shift())
             return linear(self.to_out, out)
         q = _split_heads(qkv[..., :inner], heads)
         k = _split_heads(qkv[..., inner:2 * inner], heads)

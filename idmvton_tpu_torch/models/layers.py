@@ -10,7 +10,8 @@ parameters are fp32 as in the JAX package.
 ``group_norm`` its statistics to ``gn_spatial_stats`` exactly where the JAX
 package takes its Pallas kernels; everything else is plain PyTorch.
 ``IDMVTON_CONV_PADACC=1`` swaps the ``conv3x3`` sites (not the
-``conv3x3_hblock`` ones) to the padded-accumulator kernel, as in JAX.
+``conv3x3_hblock`` ones) to the padded-accumulator kernel, as in JAX. The
+conv kernels take an fp32 x (the VAE's fp32 decode) with the bf16 weights.
 ``QuantLinear`` is the int8 form of ``Linear`` for W8A8 serving.
 """
 
@@ -205,7 +206,10 @@ def conv2d(p, x, *, stride: int = 1, padding="SAME", impl=None):
     if (stride == 1 and tuple(k.shape[:2]) == (3, 3)
             and padding in ("SAME", ((1, 1), (1, 1)))):
         if resolve(impl, x) == "cuda":
-            kk = k.to(x.dtype)
+            # the kernels take bf16 weights for a bf16 or an fp32 x (bf16
+            # operands, fp32 accumulation: the TPU kernel's DEFAULT
+            # precision), so an fp32 x does not upcast them
+            kk = k if x.dtype == torch.float32 else k.to(x.dtype)
             if conv3x3_supported(x, kk):
                 if conv_padacc_enabled():
                     return conv3x3_padacc(x, kk, p.bias)

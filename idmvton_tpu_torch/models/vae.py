@@ -3,9 +3,10 @@ attention, NHWC. Counterpart of ``idmvton_tpu/models/vae.py``.
 
 Every 3x3 conv and GroupNorm here goes through ``layers.conv2d`` /
 ``layers.group_norm`` with ``impl=None``, as in the JAX package: on a CUDA
-tensor the kernels, on a CPU tensor the plain versions. The conv kernel
-takes bf16, so ``VAEConfig.force_upcast`` (an fp32 decode) raises on a CUDA
-tensor until an fp32 kernel exists.
+tensor the kernels, on a CPU tensor the plain versions. With
+``VAEConfig.force_upcast`` the decode runs in fp32: the conv kernels take
+the fp32 activations with the bf16 weights (fp32 out, as the TPU kernel at
+DEFAULT precision) and the GroupNorm statistics kernel takes fp32.
 """
 
 from __future__ import annotations

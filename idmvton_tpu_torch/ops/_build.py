@@ -34,15 +34,18 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: name -> argtypes (all return int, a cudaError_t)
 SIGNATURES = {
-    "idm_ln_linear": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # x, gamma, beta, w, bias, bias_bf16, stats scratch, out, M, C, N, eps,
+    # then the plan (an int64 array: cuda_norm.LnLinearPlan.c_plan)
+    "idm_ln_linear": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _P,
+                      _P],
     "idm_ln_linear_i8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "idm_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _P],
     "idm_gn_stats": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # ... B, H, W, Cin, Cout, then the plan: bn, tile_h, tile_w
-    "idm_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # ... B, H, W, Cin, Cout, then the plan: bm, bn, tiles_per_image
+    # ... B, H, W, Cin, Cout, f32, then the plan: bn, tile_h, tile_w
+    "idm_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # ... B, H, W, Cin, Cout, f32, then the plan: bm, bn, tiles_per_image
     "idm_conv3x3_padacc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _P],
+                           _I, _P],
     # ... B, N, M, H, D, sink_tokens, scale, fixed_shift, then the plan (an
     # int64 array: cuda_attention.AttentionPlan.c_plan)
     "idm_flash_attention_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
@@ -56,7 +59,8 @@ SIGNATURES = {
 
 # -D flags of the library that ``lib()`` builds and binds: none for the
 # port; scripts/torch_attention_tiles.py sets the attention kernel's other
-# ring depths, turn-taking and tiles
+# ring depths, turn-taking and tiles, scripts/torch_ln_tiles.py the
+# ln_linear kernel's ring depth
 DEFINES: tuple = ()
 
 _lock = threading.Lock()

@@ -14,13 +14,18 @@
 // of the HWIO weights read in place; a TMA/mbarrier ring feeds two wgmma
 // consumer warpgroups; persistent blocks; bias and the one bf16 rounding in
 // the register epilogue. The tile shape and N tile come from the wrapper's
-// plan (cuda_conv.py::conv_plan).
+// plan (cuda_conv.py::conv_plan). An fp32 x (f32) gives an fp32 output from
+// the same bf16 weights (the F32 instance of conv3x3.cuh).
 
 #include "conv3x3.cuh"
 
+// x (B, H, W, Cin) bf16, or fp32 with f32 (then out is fp32); w (3, 3, Cin,
+// Cout) bf16; bias (Cout,) fp32 or NULL; then the plan: bn and the tile_h x
+// tile_w pixels of a tile
 extern "C" int idm_conv3x3(const void* x, const void* w, const void* bias,
                            void* out, int B, int H, int W, int Cin, int Cout,
-                           int bn, int tile_h, int tile_w, void* stream) {
+                           int f32, int bn, int tile_h, int tile_w,
+                           void* stream) {
   using namespace idm_conv;
   if ((long)B * H * W <= 0) return 0;
   const int bm = tile_h * tile_w;
@@ -38,11 +43,16 @@ extern "C" int idm_conv3x3(const void* x, const void* w, const void* bias,
   CUtensorMap xmap;
   const cuuint64_t dims[4] = {(cuuint64_t)Cin, (cuuint64_t)W, (cuuint64_t)H,
                               (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)Cin * 2, (cuuint64_t)Cin * W * 2,
-                                 (cuuint64_t)Cin * W * H * 2};
+  const cuuint64_t es = f32 ? 4 : 2;
+  const cuuint64_t strides[3] = {(cuuint64_t)Cin * es,
+                                 (cuuint64_t)Cin * W * es,
+                                 (cuuint64_t)Cin * W * H * es};
   const cuuint32_t box[4] = {BK, (cuuint32_t)tile_w, (cuuint32_t)tile_h, 1};
-  cudaError_t e = idm::encode_tiled(&xmap, x, 4, dims, strides, box, 128);
+  // fp32: 256-byte box rows, unswizzled (the consumers narrow them)
+  cudaError_t e = idm::encode_tiled(&xmap, x, 4, dims, strides, box,
+                                    f32 ? 0 : 128, f32 != 0);
   if (e != cudaSuccess) return (int)e;
-  return (int)launch<kHalo>(bm, bn, xmap, w, Cin, bias, out, g,
-                            static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (f32) return (int)launch<kHalo, true>(bm, bn, xmap, w, Cin, bias, out, g, st);
+  return (int)launch<kHalo>(bm, bn, xmap, w, Cin, bias, out, g, st);
 }

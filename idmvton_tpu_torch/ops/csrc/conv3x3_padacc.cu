@@ -21,13 +21,14 @@
 // the same wgmma registers: the TPU kernel's shifted fp32 accumulator and its
 // read-modify-write passes are gone. Rows past the tensor are zero-filled
 // by TMA; the positions they feed (j >= W, or past the image's H * (W+2))
-// are dropped at the store.
+// are dropped at the store. An fp32 xp (f32) gives an fp32 output, as
+// conv3x3.cu's fp32 instance.
 
 #include "conv3x3.cuh"
 
 extern "C" int idm_conv3x3_padacc(const void* xp, const void* w,
                                   const void* bias, void* out, int B, int H,
-                                  int W, int Cin, int Cout, int bm,
+                                  int W, int Cin, int Cout, int f32, int bm,
                                   int bn, int tiles_per_image, void* stream) {
   using namespace idm_conv;
   if ((long)B * H * W <= 0) return 0;
@@ -46,10 +47,13 @@ extern "C" int idm_conv3x3_padacc(const void* xp, const void* w,
   g.tiles = (int)tiles;
   CUtensorMap xmap;
   const cuuint64_t dims[2] = {(cuuint64_t)Cin, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)Cin * 2};
+  const cuuint64_t strides[1] = {(cuuint64_t)Cin * (f32 ? 4 : 2)};
   const cuuint32_t box[2] = {BK, (cuuint32_t)bm};
-  cudaError_t e = idm::encode_tiled(&xmap, xp, 2, dims, strides, box, 128);
+  cudaError_t e = idm::encode_tiled(&xmap, xp, 2, dims, strides, box,
+                                    f32 ? 0 : 128, f32 != 0);
   if (e != cudaSuccess) return (int)e;
-  return (int)launch<kPadded>(bm, bn, xmap, w, Cin, bias, out, g,
-                              static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (f32)
+    return (int)launch<kPadded, true>(bm, bn, xmap, w, Cin, bias, out, g, st);
+  return (int)launch<kPadded>(bm, bn, xmap, w, Cin, bias, out, g, st);
 }

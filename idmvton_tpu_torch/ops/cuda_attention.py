@@ -41,7 +41,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import logging
 import os
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -59,6 +61,9 @@ KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 # up to this many keys the JAX flash_attention takes its XLA einsum path
 # (the default of pallas_attention.py:45)
 XLA_KV_CUTOFF = 256
+# the fixed-shift softmax's clamp on a scaled logit (pallas_attention.py:
+# 244, csrc/flash_attention.cuh::CLAMP)
+FIXED_SHIFT_CLAMP = 60.0
 
 
 # ---------------------------------------------------------------------------
@@ -118,8 +123,9 @@ def _heads_map(d, dp, heads, rows, batch, row_stride, batch_stride,
 
 
 def _c_plan(fields, maps) -> ctypes.Array:
-    """flash_attention.cuh's Plan: the int64 fields, then each map's dims,
-    byte strides, box and swizzle (zeros where there is no map)."""
+    """A C entry point's Plan (flash_attention.cuh's, ln_linear.cu's): the
+    int64 fields, then each map's dims, byte strides, box and swizzle (zeros
+    where there is no map)."""
     vals = list(fields)
     for t in maps:
         vals += [*t.dims, *t.strides, *t.box, t.swizzle] if t else [0] * 12
@@ -347,7 +353,12 @@ flash_attention_fused_qkv.launches = 0
 
 def flash_attention_gemm_torch(qkv, kv_ref=None, *, heads: int,
                                scale: Optional[float] = None,
-                               sink_tokens: int = 0, uncond_rows: int = 0):
+                               sink_tokens: int = 0, uncond_rows: int = 0,
+                               fixed_shift: bool = False):
+    """Plain version: the exact softmax (JAX ``_gemm_ref_xla``), or with
+    ``fixed_shift`` the kernel's fixed-shift formula, p = exp(min(logit,
+    60)) normalized by its sum, which differs from the exact softmax only
+    where logits pass the clamp."""
     b, n, three_hd = qkv.shape
     hd = three_hd // 3
     d = hd // heads
@@ -369,7 +380,13 @@ def flash_attention_gemm_torch(qkv, kv_ref=None, *, heads: int,
         z = k.new_zeros(b, sink_tokens, heads, d)
         k = torch.cat([k, z], 1)
         v = torch.cat([v, z], 1)
-    return attend(q, k, v, scale).reshape(b, n, hd)
+    if not fixed_shift:
+        return attend(q, k, v, scale).reshape(b, n, hd)
+    p = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    p.mul_(scale).clamp_max_(FIXED_SHIFT_CLAMP).exp_()
+    p.div_(p.sum(-1, keepdim=True))
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return out.to(qkv.dtype).reshape(b, n, hd)
 
 
 def flash_attention_gemm(qkv, kv_ref=None, *, heads: int,
@@ -377,7 +394,8 @@ def flash_attention_gemm(qkv, kv_ref=None, *, heads: int,
                          sink_tokens: int = 0, uncond_rows: int = 0,
                          fixed_shift: bool = True):
     """qkv (B, N, 3*H*D) bf16; kv_ref (B - uncond_rows, M, 2*H*D) bf16 or
-    None. Returns (B, N, H*D) bf16."""
+    None. Returns (B, N, H*D) bf16. The model's site passes
+    ``fixed_shift=_fixed_shift()``, read at its call."""
     out = _gemm_launch(qkv, kv_ref, heads, scale, sink_tokens, uncond_rows,
                        fixed_shift)
     flash_attention_gemm.launches += 1
@@ -385,6 +403,85 @@ def flash_attention_gemm(qkv, kv_ref=None, *, heads: int,
 
 
 flash_attention_gemm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the fixed-shift switch (pallas_attention.py::_fixed_shift and its
+# load-time calibration)
+# ---------------------------------------------------------------------------
+
+# Set by calibrate_fixed_shift() when a checkpoint's live logits exceed the
+# clamp (60): forces the exact online-max softmax for the rest of the
+# process.
+_FIXED_SHIFT_FORCED_OFF = False
+# serializes the calibration's A/B, which sets the environment and the flag
+_CALIBRATE_LOCK = threading.Lock()
+
+
+def _fixed_shift() -> bool:
+    """Fixed-shift softmax (the default): p = exp(min(logit, 60)) with no
+    running max, exact for every logit <= 60. ``IDMVTON_FLASH_FIXED_SHIFT=0``
+    or a failed calibration selects the online-max softmax. Read at every
+    call of the self-attention site."""
+    if _FIXED_SHIFT_FORCED_OFF:
+        return False
+    return os.environ.get("IDMVTON_FLASH_FIXED_SHIFT", "1") == "1"
+
+
+def _gemm_attention(qkv, kv_ref, **kw):
+    """``flash_attention_gemm`` in the switch's mode: the kernel on a CUDA
+    tensor, its plain version on a CPU tensor."""
+    fn = flash_attention_gemm if qkv.is_cuda else flash_attention_gemm_torch
+    return fn(qkv, kv_ref, fixed_shift=_fixed_shift(), **kw)
+
+
+def calibrate_fixed_shift(qkv, kv_ref=None, *, tol: float = 5e-3,
+                          **kw) -> dict:
+    """Load-time guard for a new or fine-tuned checkpoint: A/B the
+    fixed-shift softmax against the online-max softmax on one batch of real
+    projected activations (the to_qkv output of the hottest attention site;
+    kwargs go to ``flash_attention_gemm``, ``heads=`` required). If the max
+    |difference| exceeds ``tol`` (logits above the clamp equalize), force
+    the online-max softmax for the rest of the process; a clean calibration
+    clears an earlier force-off. Returns {"max_error", "fixed_shift"}. The
+    site reads the switch at every call, so the result holds from the next
+    call on."""
+    global _FIXED_SHIFT_FORCED_OFF
+    with _CALIBRATE_LOCK:
+        err = _fixed_shift_max_error_locked(qkv, kv_ref, **kw)
+        _FIXED_SHIFT_FORCED_OFF = err > tol
+        if _FIXED_SHIFT_FORCED_OFF:
+            logging.getLogger(__name__).warning(
+                "fixed-shift softmax miscalibrated for this checkpoint "
+                "(max_error %.3g > tol %.3g): online-max softmax "
+                "process-wide", err, tol)
+        return {"max_error": err, "fixed_shift": not _FIXED_SHIFT_FORCED_OFF}
+
+
+def fixed_shift_max_error(qkv, kv_ref=None, **kw) -> float:
+    """Max |fixed-shift - online-max| of ``flash_attention_gemm`` on these
+    activations (kwargs as ``calibrate_fixed_shift``)."""
+    with _CALIBRATE_LOCK:
+        return _fixed_shift_max_error_locked(qkv, kv_ref, **kw)
+
+
+def _fixed_shift_max_error_locked(qkv, kv_ref=None, **kw) -> float:
+    global _FIXED_SHIFT_FORCED_OFF
+    old = os.environ.get("IDMVTON_FLASH_FIXED_SHIFT")
+    old_forced = _FIXED_SHIFT_FORCED_OFF
+    try:
+        _FIXED_SHIFT_FORCED_OFF = False   # the A/B runs both softmaxes
+        os.environ["IDMVTON_FLASH_FIXED_SHIFT"] = "1"
+        a = _gemm_attention(qkv, kv_ref, **kw)
+        os.environ["IDMVTON_FLASH_FIXED_SHIFT"] = "0"
+        b = _gemm_attention(qkv, kv_ref, **kw)
+    finally:
+        _FIXED_SHIFT_FORCED_OFF = old_forced
+        if old is None:
+            os.environ.pop("IDMVTON_FLASH_FIXED_SHIFT", None)
+        else:
+            os.environ["IDMVTON_FLASH_FIXED_SHIFT"] = old
+    return float((a.float() - b.float()).abs().max())
 
 
 def _gemm_launch(qkv, kv_ref, heads, scale, sink_tokens, uncond_rows,

@@ -12,7 +12,10 @@ same split with a size rule that reproduces that choice at every shape of
 the serving path: an input of at least ``HBLOCK_MIN_BYTES`` per image takes
 ``conv3x3_hblock`` (the VAE's 1024x768 / 512x384 / 256x192 levels), a
 smaller one ``conv3x3`` (every UNet conv, the VAE's 128x96 level). The
-kernel takes bf16; the wrappers raise on anything else.
+kernel takes a bf16 or fp32 x with bf16 weights: an fp32 x (the VAE's
+``force_upcast`` decode) gives an fp32 output from bf16 operands with fp32
+accumulation and bias, as the TPU kernel at ``Precision.DEFAULT``; the
+wrappers raise on anything else.
 
 The JAX package's opt-in ``IDMVTON_CONV_PADACC=1`` variant of the
 ``conv3x3`` sites (``_conv3_kernel_padacc``) is a kernel of its own here,
@@ -43,6 +46,8 @@ BK = 64                      # input channels a K chunk: 128-byte A box rows
 # built for (its launch<>); BM * BN <= 40960 keeps the accumulators of a
 # consumer thread at <= 160 registers
 TILES = ((128, 128), (128, 160), (128, 256), (256, 128), (256, 160))
+# the tiles of an fp32 x: its raw 256-byte A rows leave BM = 256 one stage
+F32_TILES = TILES[:3]
 SMS = 132                    # streaming multiprocessors of an H100 SXM
 # TFLOP/s of each tile at shapes it divides, read on an H100 80GB HBM3 at
 # 700 W by scripts/torch_conv_tiles.py: the plan's cost model
@@ -94,23 +99,26 @@ def _pick_tile_hw(h: int, w: int, bm: int) -> tuple:
     return best[1]
 
 
-def _tile_plan(b, h, w, cin, cout, padded, bm, bn) -> ConvPlan:
+def _tile_plan(b, h, w, cin, cout, padded, bm, bn, f32=False) -> ConvPlan:
     atom = 64 if bn % 64 == 0 else 32     # B box width: its swizzle span
     w_map = TensorMap((cout, cin, 9), (2 * cout, 2 * cin * cout),
                       (atom, BK, 1), 2 * atom)
+    # an fp32 x: 256-byte box rows, unswizzled (the consumers narrow them)
+    es, swizzle = (4, 0) if f32 else (2, 128)
     if padded:
         wp = w + 2
         tiles_per_image = _cdiv(h * wp, bm)
         tile_h = tile_w = 0
         m_tiles = b * tiles_per_image
-        x_map = TensorMap((cin, b * (h + 2) * wp), (2 * cin,), (BK, bm), 128)
+        x_map = TensorMap((cin, b * (h + 2) * wp), (es * cin,), (BK, bm),
+                          swizzle)
     else:
         tile_h, tile_w = _pick_tile_hw(h, w, bm)
         tiles_per_image = 0
         m_tiles = b * _cdiv(h, tile_h) * _cdiv(w, tile_w)
-        x_map = TensorMap((cin, w, h, b), (2 * cin, 2 * cin * w,
-                                           2 * cin * w * h),
-                          (BK, tile_w, tile_h, 1), 128)
+        x_map = TensorMap((cin, w, h, b), (es * cin, es * cin * w,
+                                           es * cin * w * h),
+                          (BK, tile_w, tile_h, 1), swizzle)
     n_tiles = _cdiv(cout, bn)
     return ConvPlan(bm, bn, n_tiles, m_tiles, m_tiles * n_tiles, tile_h,
                     tile_w, tiles_per_image, x_map, w_map)
@@ -127,23 +135,25 @@ def _cost(plan: ConvPlan, sms: int) -> float:
 # time, about a kernel's time, so each shape is planned once
 @functools.lru_cache(maxsize=1024)
 def conv_plan(b: int, h: int, w: int, cin: int, cout: int,
-              padded: bool = False, tile=None, sms: int = SMS) -> ConvPlan:
+              padded: bool = False, tile=None, sms: int = SMS,
+              f32: bool = False) -> ConvPlan:
     """Launch geometry of the conv kernel for x (b, h, w, cin) and w (3, 3,
     cin, cout); ``padded``: the ``conv3x3_padacc`` kernel, whose input is
-    the (b, h+2, w+2, cin) padded copy flattened to rows. The (BM, BN) tile
-    is ``tile`` or, of ``TILES``, the one of least ``_cost`` on ``sms`` SMs
-    (then fewer tiles). Raises where a coordinate or tile index would not
-    fit in int32."""
+    the (b, h+2, w+2, cin) padded copy flattened to rows; ``f32``: an fp32
+    x. The (BM, BN) tile is ``tile`` or, of ``TILES`` (``F32_TILES``), the
+    one of least ``_cost`` on ``sms`` SMs (then fewer tiles). Raises where a
+    coordinate or tile index would not fit in int32."""
     if cin % 8 or cout % 8:
         raise ValueError(f"conv3x3 kernel needs Cin % 8 == 0 and Cout % 8 "
                          f"== 0 (16-byte TMA strides), got {cin}, {cout}")
+    tiles = F32_TILES if f32 else TILES
     if tile is not None:
-        if tuple(tile) not in TILES:
-            raise ValueError(f"conv3x3 kernel: no {tile} tile in {TILES}")
-        plan = _tile_plan(b, h, w, cin, cout, padded, *tile)
+        if tuple(tile) not in tiles:
+            raise ValueError(f"conv3x3 kernel: no {tile} tile in {tiles}")
+        plan = _tile_plan(b, h, w, cin, cout, padded, *tile, f32)
     else:
-        plan = min((_tile_plan(b, h, w, cin, cout, padded, *t)
-                    for t in TILES),
+        plan = min((_tile_plan(b, h, w, cin, cout, padded, *t, f32)
+                    for t in tiles),
                    key=lambda p: (_cost(p, sms), p.tiles))
     # the last row or coordinate a box can reach
     rows = b * (h + 2) * (w + 2)
@@ -157,14 +167,16 @@ def conv_plan(b: int, h: int, w: int, cin: int, cout: int,
 
 def _cuda_plan(x, w, padded=False) -> ConvPlan:
     """The plan of a launch on x's card, after the checks that x is a CUDA
-    bf16 tensor and w its (3, 3, Cin, Cout) kernel."""
-    _build.ptr(x, "x", torch.bfloat16)
+    bf16 or fp32 tensor and w its (3, 3, Cin, Cout) kernel."""
+    _build.ptr(x, "x", torch.float32 if x.dtype == torch.float32
+               else torch.bfloat16)
     bsz, h, wdt, cin = x.shape
     cout = w.shape[-1]
     if w.shape != (3, 3, cin, cout):
         raise ValueError(f"conv3x3: x {tuple(x.shape)}, w {tuple(w.shape)}")
     return conv_plan(bsz, h, wdt, cin, cout, padded=padded,
-                     sms=_sm_count(x.device.index))
+                     sms=_sm_count(x.device.index),
+                     f32=x.dtype == torch.float32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -190,17 +202,18 @@ def _launch(x, w, b):
     dev = x.device
     bias = None if b is None else b.float()
     _build.call("idm_conv3x3",
-                _build.ptr(x, "x", torch.bfloat16),
+                _build.ptr(x, "x", x.dtype),
                 _build.ptr(w, "w", torch.bfloat16, dev),
                 _build.ptr(bias, "b", torch.float32, dev),
-                _build.ptr(out, "out", torch.bfloat16),
-                bsz, h, wdt, cin, cout, plan.bn, plan.tile_h, plan.tile_w,
-                _build.stream_ptr(dev))
+                _build.ptr(out, "out", x.dtype),
+                bsz, h, wdt, cin, cout, int(x.dtype == torch.float32),
+                plan.bn, plan.tile_h, plan.tile_w, _build.stream_ptr(dev))
     return out
 
 
 def conv3x3(x, w, b=None):
-    """x (B,H,W,Cin) bf16, w (3,3,Cin,Cout) bf16, b (Cout,) or None."""
+    """x (B,H,W,Cin) bf16 or fp32, w (3,3,Cin,Cout) bf16, b (Cout,) or
+    None; the output has x's type."""
     out = _launch(x, w, b)
     conv3x3.launches += 1
     return out
@@ -250,7 +263,8 @@ def conv_padacc_enabled() -> bool:
 
 def conv3x3_padacc(x, w, b=None):
     """The padded-row variant (``csrc/conv3x3_padacc.cu``) of the same conv:
-    x (B,H,W,Cin) bf16, w (3,3,Cin,Cout) bf16, b (Cout,) or None.
+    x (B,H,W,Cin) bf16 or fp32, w (3,3,Cin,Cout) bf16, b (Cout,) or None;
+    the output has x's type.
 
     As the TPU variant, it makes one explicit zero-padded copy of x and runs
     GEMMs over whole padded rows, so no tap needs a halo predicate, on an
@@ -266,12 +280,12 @@ def conv3x3_padacc(x, w, b=None):
     dev = x.device
     bias = None if b is None else b.float()
     _build.call("idm_conv3x3_padacc",
-                _build.ptr(xp, "x", torch.bfloat16),
+                _build.ptr(xp, "x", x.dtype),
                 _build.ptr(w, "w", torch.bfloat16, dev),
                 _build.ptr(bias, "b", torch.float32, dev),
-                _build.ptr(out, "out", torch.bfloat16),
-                bsz, h, wdt, cin, cout, plan.bm, plan.bn,
-                plan.tiles_per_image,
+                _build.ptr(out, "out", x.dtype),
+                bsz, h, wdt, cin, cout, int(x.dtype == torch.float32),
+                plan.bm, plan.bn, plan.tiles_per_image,
                 _build.stream_ptr(dev))
     conv3x3_padacc.launches += 1
     return out

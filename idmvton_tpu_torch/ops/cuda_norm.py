@@ -4,7 +4,8 @@ Counterpart of ``idmvton_tpu/ops/pallas_norm.py``. Each kernel wrapper here
 launches its CUDA kernel (``csrc/ln_linear.cu``, ``csrc/ln_linear_i8.cu``,
 ``csrc/gn_stats.cu``) on CUDA tensors and raises on anything else (CPU
 tensors, types the kernel does not take: bf16 activations, int8 weights
-for the W8A8 kernel, fp32 also for the GroupNorm statistics); the
+for the W8A8 kernel, fp32 also for the GroupNorm statistics, a bf16 or
+fp32 bias for ``ln_linear``); the
 ``*_torch`` function beside it is its plain version (the JAX package's XLA
 formula), which the sites take on CPU tensors and which the tests and
 ``chip_smoke.py`` compare against. The ``*_supported`` predicates are shape
@@ -14,16 +15,28 @@ tensor of the wrong type: the wrapper raises.
 All statistics are one-pass fp32 with the clamped variance
 ``var = max(E[x^2] - E[x]^2, 0)`` of the JAX package (not the two-pass
 statistics of ``F.layer_norm`` / ``F.group_norm``).
+
+``ln_linear_plan`` is the one source of the ``ln_linear`` kernel's launch
+geometry (its tile, grid and tensor maps, passed to the C entry point as an
+int64 array), cached per shape.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from idmvton_tpu_torch.ops import _build
+from idmvton_tpu_torch.ops.cuda_attention import (
+    _TMA_DIM, _TMA_STRIDE, _c_plan,
+)
+from idmvton_tpu_torch.ops.cuda_conv import (
+    INT32_MAX, SMS, TensorMap, _cdiv, _sm_count,
+)
 
 _LANE = 128
 
@@ -44,9 +57,13 @@ def layer_norm_torch(x, scale, bias, eps: float = 1e-5):
 
 
 def fused_layer_norm(x, scale, bias, eps: float = 1e-5):
-    """x (..., C) bf16 with C % 128 == 0; scale/bias (C,) fp32."""
+    """x (..., C) bf16 with C % 128 == 0 up to 2048 (the kernel holds a row
+    in registers); scale/bias (C,) fp32."""
     c = x.shape[-1]
     m = x.numel() // c
+    if c % _LANE or not 0 < c <= 16 * _LANE:
+        raise ValueError(f"fused_layer_norm kernel needs C % 128 == 0 and "
+                         f"C <= 2048, got C={c}")
     out = torch.empty_like(x)
     dev = x.device
     _build.call("idm_layer_norm",
@@ -70,6 +87,82 @@ def supports_fused_ln(x) -> bool:
 # LayerNorm + GEMM (+ GEGLU) (replaces pallas_norm.py::ln_linear)
 # ---------------------------------------------------------------------------
 
+LN_BM, LN_BK = 128, 64      # rows a tile; K a chunk (128-byte x box rows)
+# B columns a ring stage (value + gate for GEGLU) csrc/ln_linear.cu is
+# built for; a tile's output columns are BN, or BN / 2 for GEGLU
+LN_TILES = (128, 256)
+# TFLOP/s of each (BN, geglu) tile in a CUDA graph at the path's full-width
+# shapes, read on an H100 80GB HBM3 at 700 W by scripts/torch_ln_tiles.py
+# (4 stages): the plan's cost model
+LN_TILE_TFLOPS = {(128, False): 260, (256, False): 380, (128, True): 260,
+                  (256, True): 335}
+
+
+class LnLinearPlan(NamedTuple):
+    bn: int                 # B columns a ring stage: the instance
+    geglu: bool
+    vw: int                 # output columns a tile
+    m_tiles: int            # 128-row blocks
+    n_tiles: int            # vw-column tiles a row block
+    tiles: int              # m_tiles * n_tiles, column tiles fastest
+    grid: int               # persistent blocks, each a contiguous range
+    kc: int                 # 64-deep K chunks
+    x_map: TensorMap        # x (M, C): box (64, 128)
+    w_map: TensorMap        # w (C, G * N): box (64, 64), MN-major B
+    c_plan: ctypes.Array    # all of the above as the C entry point reads it
+
+
+def _ln_tile_plan(m, c, n, geglu, bn, sms) -> LnLinearPlan:
+    vw = bn // 2 if geglu else bn
+    m_tiles, n_tiles = _cdiv(m, LN_BM), _cdiv(n, vw)
+    tiles = m_tiles * n_tiles
+    grid = min(tiles, sms)
+    x_map = TensorMap((c, m), (2 * c,), (LN_BK, LN_BM), 128)
+    n_total = (2 if geglu else 1) * n
+    w_map = TensorMap((n_total, c), (2 * n_total,), (64, LN_BK), 128)
+    fields = (bn, int(geglu), m_tiles, n_tiles, tiles, grid, n, c // LN_BK)
+    return LnLinearPlan(bn, geglu, vw, m_tiles, n_tiles, tiles, grid,
+                        c // LN_BK, x_map, w_map,
+                        _c_plan(fields, (x_map, w_map)))
+
+
+def _ln_cost(plan: LnLinearPlan) -> float:
+    """Time of the busiest block: its tiles (a contiguous share of all),
+    each 128 x bn x C at its tile's measured rate."""
+    return (_cdiv(plan.tiles, plan.grid) * plan.bn
+            / LN_TILE_TFLOPS[plan.bn, plan.geglu])
+
+
+# a step has a dozen ln_linear shapes and each call would otherwise pay the
+# plan's Python, so each shape is planned once
+@functools.lru_cache(maxsize=1024)
+def ln_linear_plan(m: int, c: int, n: int, geglu: bool = False, tile=None,
+                   sms: int = SMS) -> LnLinearPlan:
+    """Launch geometry of the ln_linear kernel for x (m, c) and w (c, n) or,
+    for ``geglu``, (c, 2n) [value | gate]: n is the output width. The BN
+    (B columns a ring stage) is ``tile`` or, of ``LN_TILES``, the one of
+    least ``_ln_cost`` on ``sms`` SMs (then fewer tiles). Raises on what the
+    kernel cannot take: C not a multiple of 64 (its K chunks), N not a
+    multiple of 8 (16-byte W rows and output stores), or a coordinate past
+    TMA's or int32's range."""
+    if m < 1 or c < LN_BK or c % LN_BK or n < 8 or n % 8:
+        raise ValueError(f"ln_linear kernel needs M >= 1, C % 64 == 0 and N "
+                         f"% 8 == 0, got M={m}, C={c}, N={n}")
+    if tile is not None:
+        if tile not in LN_TILES:
+            raise ValueError(f"ln_linear kernel: no BN {tile} in {LN_TILES}")
+        plan = _ln_tile_plan(m, c, n, geglu, tile, sms)
+    else:
+        plan = min((_ln_tile_plan(m, c, n, geglu, bn, sms)
+                    for bn in LN_TILES),
+                   key=lambda p: (_ln_cost(p), p.tiles))
+    if (max(plan.tiles, m, plan.w_map.dims[0]) > INT32_MAX
+            or max(plan.x_map.dims + plan.w_map.dims) >= _TMA_DIM
+            or max(plan.x_map.strides + plan.w_map.strides) >= _TMA_STRIDE):
+        raise ValueError(f"ln_linear kernel: x ({m}, {c}) -> {n} overflows "
+                         f"its int32 tile or TMA coordinates")
+    return plan
+
 
 def ln_linear_torch(x, gamma, beta, w, b=None, *, eps: float = 1e-5,
                     geglu: bool = False):
@@ -86,33 +179,42 @@ def ln_linear_torch(x, gamma, beta, w, b=None, *, eps: float = 1e-5,
 
 
 def ln_linear(x, gamma, beta, w, b=None, *, eps: float = 1e-5,
-              geglu: bool = False):
+              geglu: bool = False, tile=None):
     """layer_norm(x) @ w (+ b), optionally with a GEGLU epilogue.
 
     x (..., C) bf16; gamma/beta (C,) fp32; w (C, N) bf16, or (C, 2N)
-    laid out [value | gate] for ``geglu``; b (N,) or (2N,) fp32 or None.
-    Returns (..., N) bf16. The sites send an int8-quantized projection to
-    ``ln_linear_i8`` instead (``models.attention._ln_proj``)."""
+    laid out [value | gate] for ``geglu``; b (N,) or (2N,) bf16 or fp32
+    (the kernel widens it) or None. Returns (..., N) bf16. ``tile`` forces
+    the plan's BN, as scripts/torch_ln_tiles.py does. The sites send an
+    int8-quantized projection to ``ln_linear_i8`` instead
+    (``models.attention._ln_proj``)."""
     c = x.shape[-1]
     m = x.numel() // c
     n_out = w.shape[1] // (2 if geglu else 1)
-    if w.shape[0] != c or (b is not None and b.shape != (w.shape[1],)):
+    if (w.dim() != 2 or w.shape[0] != c
+            or w.shape[1] != (2 if geglu else 1) * n_out
+            or (b is not None and tuple(b.shape) != (w.shape[1],))):
         raise ValueError(f"ln_linear: x {tuple(x.shape)}, w {tuple(w.shape)}"
                          f", b {None if b is None else tuple(b.shape)}")
-    if c % 32 or n_out % _LANE:
-        raise ValueError(f"ln_linear kernel needs C % 32 == 0 and "
-                         f"N % 128 == 0, got C={c}, N={n_out}")
-    out = torch.empty(*x.shape[:-1], n_out, dtype=x.dtype, device=x.device)
     dev = x.device
-    bias = None if b is None else b.float()
-    _build.call("idm_ln_linear",
-                _build.ptr(x, "x", torch.bfloat16),
-                _build.ptr(gamma, "gamma", torch.float32, dev),
-                _build.ptr(beta, "beta", torch.float32, dev),
-                _build.ptr(w, "w", torch.bfloat16, dev),
-                _build.ptr(bias, "b", torch.float32, dev),
-                _build.ptr(out, "out", torch.bfloat16),
-                m, c, n_out, int(geglu), float(eps), _build.stream_ptr(dev))
+    x_ptr = _build.ptr(x, "x", torch.bfloat16)
+    bias_bf16 = b is not None and b.dtype == torch.bfloat16
+    ptrs = (_build.ptr(gamma, "gamma", torch.float32, dev),
+            _build.ptr(beta, "beta", torch.float32, dev),
+            _build.ptr(w, "w", torch.bfloat16, dev),
+            _build.ptr(b, "b", torch.bfloat16 if bias_bf16 else torch.float32,
+                       dev))
+    out = torch.empty(*x.shape[:-1], n_out, dtype=x.dtype, device=dev)
+    if m == 0:
+        return out
+    plan = ln_linear_plan(m, c, n_out, bool(geglu), tile,
+                          sms=_sm_count(dev.index))
+    # the kernel's statistics pre-pass writes (inv, -mean * inv) a row here
+    stats = torch.empty(m, 2, dtype=torch.float32, device=dev)
+    _build.call("idm_ln_linear", x_ptr, *ptrs, int(bias_bf16),
+                _build.ptr(stats, "stats", torch.float32),
+                _build.ptr(out, "out", torch.bfloat16), m, c, n_out,
+                float(eps), plan.c_plan, _build.stream_ptr(dev))
     ln_linear.launches += 1
     return out
 
@@ -121,7 +223,8 @@ ln_linear.launches = 0
 
 
 def ln_linear_supported(x, w, *, geglu: bool = False) -> bool:
-    """JAX ``ln_linear_supported``: C and N multiples of 128."""
+    """JAX ``ln_linear_supported``: C and N multiples of 128 (within what
+    ``ln_linear_plan`` takes)."""
     c = x.shape[-1]
     two = 2 if geglu else 1
     n_out = w.shape[1] // two

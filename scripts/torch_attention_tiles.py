@@ -73,28 +73,6 @@ def tiles(dp):
             if p == dp]
 
 
-def graph_ms(fn, iters: int = 10, reps: int = 3) -> float:
-    """Device ms a call: ``iters`` calls captured in one CUDA graph and
-    replayed ``reps`` times."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(iters):
-            fn()
-    g.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        g.replay()
-    end.record()
-    torch.cuda.synchronize()
-    del g
-    return start.elapsed_time(end) / (iters * reps)
-
-
 def cases(dev, g):
     """(label, (b, sq, heads, d), [(mode, kernel(tile), plain)], sdpa,
     logits, flop, ins) of each shape."""
@@ -204,7 +182,7 @@ def main():
     with torch.inference_mode():
         for label, shape, runs, sdpa, logits, flop, ins in cases(dev, g):
             lib = smoke.cuda_time_ms(sdpa)
-            lib_graph = graph_ms(sdpa)
+            lib_graph = smoke.graph_ms(sdpa)
             out_bytes = smoke.nbytes(sdpa())
             bound = max(1e3 * (smoke.nbytes(ins) + out_bytes) / smoke.HBM_BPS,
                         1e3 * flop / smoke.PEAK["bf16"])
@@ -234,7 +212,7 @@ def main():
                     for tile in [pick] if args.quick else tiles(plan.dp):
                         _, err = smoke.errors(kern(tile), want)
                         ms = smoke.cuda_time_ms(lambda: kern(tile))
-                        gms = graph_ms(lambda: kern(tile))
+                        gms = smoke.graph_ms(lambda: kern(tile))
                         mark = (" <- plan" if tile == pick and variant == PORT
                                 else "")
                         smoke.log(f"  {mode} bkv {tile[0]} stages "

@@ -4,8 +4,11 @@ card, on the bf16 path and on the variant path: the SDXL try-on stack with
 seeded random weights at 768x1024, batch 2, CFG 2.0 (chip_smoke.py's
 operating point).
 
-Run from the root of a checkout: ``python3 scripts/torch_step_profile.py``.
-It needs one CUDA card and nvcc, and imports nothing of JAX.
+Run from the root of a checkout: ``python3 scripts/torch_step_profile.py``
+(``--root DIR``: profile the ``idmvton_tpu_torch`` of another checkout,
+e.g. an older commit unpacked with ``git archive``, for an A/B in one
+call; ``--paths bf16``: the bf16 path only). It needs one CUDA card and
+nvcc, and imports nothing of JAX.
 
 For each path it times one ``denoise_step`` (``impl="cuda"``) unprofiled,
 the mean of 3 after 2 warm-up steps, then profiles one with
@@ -16,12 +19,13 @@ for W8A8 in place and sets ``IDMVTON_CROSS_KERNEL=1`` and
 ``IDMVTON_CONV_PADACC=1``, as chip_smoke's phase 7. Device time is also
 summed by kernel group (``GROUPS``: each kernel of the port, cuBLAS
 GEMMs, PyTorch's elementwise, copy and reduce kernels). Traces go to
-``chiprun_out/{bf16,variant}_step_trace.json``; the last line is one JSON
-object with every reading.
+``{tag}{bf16,variant}_step_trace.json`` in ``torch_tiny_step_probe.OUT``;
+the last line is one JSON object with every reading.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -39,8 +43,11 @@ from torch_tiny_step_probe import OUT, profile_step  # noqa: E402
 # (group, substrings of the kernel name), the first match wins
 GROUPS = (("ln_linear_i8 GEGLU", ("ln_linear_i8_kernel<true",)),
           ("ln_linear_i8", ("ln_linear_i8_kernel",)),
-          ("ln_linear GEGLU", ("ln_linear_kernel<true",)),
+          ("ln_linear GEGLU", ("ln_linear_kernel<true",
+                               "ln_linear_kernel<128, true",
+                               "ln_linear_kernel<256, true")),
           ("ln_linear", ("ln_linear_kernel",)),
+          ("ln_linear statistics pre-pass", ("ln_stats_kernel",)),
           ("flash_attention_gemm", ("flash_gemm_kernel",)),
           ("cross_attention_small_kv", ("cross_small_kernel",)),
           ("conv3x3 / conv3x3_padacc (wgmma)", ("idm_conv::conv3x3_kernel",)),
@@ -72,9 +79,18 @@ def grouped(label):
 
 def main():
     import torch
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=None,
+                    help="profile the idmvton_tpu_torch of this checkout")
+    ap.add_argument("--paths", default="bf16,variant")
+    ap.add_argument("--tag", default="",
+                    help="prefix of the traces' names (an A/B's side)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         smoke.fail("torch.cuda.is_available() is false: this probe needs a "
                    "card")
+    if args.root:
+        sys.path.insert(0, str(Path(args.root).resolve()))
     from idmvton_tpu_torch.models.attention import quantize_unet_linears_int8
     from idmvton_tpu_torch.ops import _build
     from idmvton_tpu_torch.pipeline.tryon import TryonModels, TryonPipeline
@@ -89,7 +105,7 @@ def main():
     os.environ["IDMVTON_CONV_PADACC"] = "0"
     _build.lib()
     dev = torch.device("cuda", 0)
-    res = {"card": smi.stdout.strip()}
+    res = {"card": smi.stdout.strip(), "root": str(args.root or ROOT)}
 
     with torch.inference_mode():
         models = TryonModels.init(smoke.SEED, device=dev, dtype=torch.bfloat16)
@@ -109,7 +125,7 @@ def main():
                                      guidance_scale=smoke.GUIDANCE,
                                      step_noise=noise, impl="cuda")
 
-        for path in ("bf16", "variant"):
+        for path in args.paths.split(","):
             if path == "variant":
                 quantize_unet_linears_int8(models.unet)
                 quantize_unet_linears_int8(models.garm, attn_qkv=False)
@@ -124,8 +140,9 @@ def main():
                 step()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) / 3 * 1e3
-            res[path] = profile_step(step, wall, label=path, top_n=15)
-            res[path]["groups"] = grouped(path)
+            label = args.tag + path
+            res[path] = profile_step(step, wall, label=label, top_n=15)
+            res[path]["groups"] = grouped(label)
 
     print(json.dumps(res), flush=True)
 

@@ -7,6 +7,9 @@ last phase.
 Run from the root of a checkout: ``python3 scripts/torch_tiny_step_probe.py``.
 It needs one CUDA card and nvcc, and imports nothing of JAX.
 
+The tiny models get random biases and norm affines from the seed
+(``chip_smoke.random_affine_``), as chip_smoke's tiny phase gives them.
+
 1. Runs the tiny CLI batch (``cli.infer.run``) three times, wall time each.
 2. Times one tiny denoise step (``impl="cuda"``) unprofiled, the mean of 5
    after 2 warm-up steps, then profiles one with ``torch.profiler``: the
@@ -16,8 +19,11 @@ It needs one CUDA card and nvcc, and imports nothing of JAX.
 3. Reads the tiny step's cuda-vs-torch guided noise prediction
    (``chip_smoke.step_readings``) clean and with a fault planted where
    ``flash_attention`` launches kernel #9 (more than 256 keys): its output
-   x1.02 and x1.05, and the garment half of the concatenated KV dropped. Every reading draws
-   from the same seed, so only the fault differs.
+   x1.02 and x1.05, and the garment half of the concatenated KV dropped;
+   and where the fused LayerNorm sites launch ``ln_linear`` (kernel #1):
+   the bias dropped, and the LayerNorm's shift (beta) dropped -- faults the
+   init's zero biases and shifts would hide. Every reading draws from the
+   same seed, so only the fault differs.
 4. Runs the CLI batch twice more.
 
 Prints one JSON object with every reading as its last line.
@@ -95,6 +101,7 @@ def main():
                    "card")
     from idmvton_tpu_torch.cli import infer
     from idmvton_tpu_torch.data.datasets import BatchLoader
+    from idmvton_tpu_torch.models import attention as site
     from idmvton_tpu_torch.ops import _build
     from idmvton_tpu_torch.ops import cuda_attention as A
 
@@ -112,6 +119,8 @@ def main():
         args = infer.parse_args(["--data_dir", "-", "--tiny",
                                  "--device", "cuda"])
         tiny = infer.load_models(args, torch.bfloat16)
+        for i, module in enumerate(tiny.components().values()):
+            smoke.random_affine_(module, smoke.SEED + 30 + i)
         pipe, tok1, tok2, gen = infer.build(args, tiny)
         loader = BatchLoader(smoke.synthetic_batch(smoke.BATCH, smoke.SEED + 2),
                              args.test_batch_size)
@@ -171,16 +180,28 @@ def main():
             calls[0] += 1
             return fa(q, k, v, scale=scale)
 
+        lnl = site.ln_linear
+
+        def no_bias(x, gamma, beta, w, b=None, **kw):
+            calls[0] += b is not None
+            return lnl(x, gamma, beta, w, None, **kw)
+
+        def no_shift(x, gamma, beta, w, b=None, **kw):
+            calls[0] += 1
+            return lnl(x, gamma, torch.zeros_like(beta), w, b, **kw)
+
         faults = {"clean": {},
                   "flash_attention x1.02": {"flash_attention": scaled(1.02)},
                   "flash_attention x1.05": {"flash_attention": scaled(1.05)},
                   "garment KV dropped": {
-                      "flash_attention_concat_kv": own_kv_only}}
+                      "flash_attention_concat_kv": own_kv_only},
+                  "ln_linear bias dropped": {"ln_linear": no_bias},
+                  "ln_linear beta dropped": {"ln_linear": no_shift}}
         res["probe"] = {}
         for label, patch in faults.items():
             calls[0] = 0
             for name, fn in patch.items():
-                setattr(A, name, fn)
+                setattr(site if name == "ln_linear" else A, name, fn)
             try:
                 r = smoke.step_readings(
                     pipe, inputs,
@@ -188,6 +209,7 @@ def main():
                     f"tiny [{label}]")
             finally:
                 A.flash_attention, A.flash_attention_concat_kv = fa, fa_cat
+                site.ln_linear = lnl
             res["probe"][label] = {"faulty_calls": calls[0],
                                    "noise_pred": r["noise_pred"],
                                    "latent": r["latent"]}

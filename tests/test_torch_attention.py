@@ -158,3 +158,96 @@ def test_kernel_wrappers_check_layouts():
     with pytest.raises(ValueError, match="CUDA"):
         A.flash_attention_fused_qkv(
             torch.zeros(1, 300, 3, 2, 16, dtype=torch.bfloat16), 100)
+
+
+# ---------------------------------------------------------------------------
+# the fixed-shift switch (JAX pallas_attention._fixed_shift and its
+# calibration)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("env,forced,want", [
+    (None, False, True), ("1", False, True), ("0", False, False),
+    ("1", True, False)])
+def test_self_attention_site_reads_the_fixed_shift_switch(
+        monkeypatch, env, forced, want):
+    """The SelfAttention site passes the switch as it stands at the call
+    (IDMVTON_FLASH_FIXED_SHIFT, then the calibration's force-off) to
+    flash_attention_gemm, as the JAX function reads ``_fixed_shift()`` at
+    every dispatch; recorded through a stand-in for the kernel."""
+    from idmvton_tpu_torch.models import attention as tmod
+    if env is None:
+        monkeypatch.delenv("IDMVTON_FLASH_FIXED_SHIFT", raising=False)
+    else:
+        monkeypatch.setenv("IDMVTON_FLASH_FIXED_SHIFT", env)
+    monkeypatch.setattr(A, "_FIXED_SHIFT_FORCED_OFF", forced)
+    seen = []
+
+    def fake(qkv, kv, *, heads, uncond_rows, fixed_shift):
+        seen.append(fixed_shift)
+        return A.flash_attention_gemm_torch(qkv, kv, heads=heads,
+                                            uncond_rows=uncond_rows,
+                                            fixed_shift=fixed_shift)
+
+    monkeypatch.setattr(tmod, "flash_attention_gemm", fake)
+    mod = SelfAttention(128, heads=2, head_dim=64, dtype=torch.float32,
+                        device="cpu")
+    for p in mod.parameters():
+        p.data.copy_(torch.from_numpy(_np(50, *p.shape)) * 0.05)
+    x = torch.from_numpy(_np(51, 2, 20, 128))
+    out = mod(x, garment_feat=torch.from_numpy(_np(52, 1, 20, 128)),
+              garment_uncond_zero=True, impl="cuda")
+    assert seen == [want] and out.shape == (2, 20, 128)
+    assert A._fixed_shift() is want
+
+
+def _hot_qkv(n=128, d=128):
+    """Logits far above the clamp with distinct magnitudes (the JAX test's
+    input): the fixed shift equalizes them, the online max keeps their
+    order."""
+    rows = (1.0 + np.arange(n, dtype=np.float32) / n)[None, :, None]
+    base = 4.0 * np.ones((1, n, d), np.float32)
+    return np.concatenate([base, base * rows, _np(53, 1, n, d)], -1)
+
+
+@pytest.mark.parametrize("hot", [False, True])
+def test_fixed_shift_max_error_matches_jax(hot):
+    if hot:
+        qkv, kv, heads = _hot_qkv(), None, 1
+    else:
+        qkv, kv, heads = _np(54, 2, 192, 384), _np(55, 1, 192, 256), 2
+    want = jpa.fixed_shift_max_error(
+        jnp.asarray(qkv), None if kv is None else jnp.asarray(kv),
+        heads=heads, uncond_rows=0 if kv is None else 1)
+    got = A.fixed_shift_max_error(
+        torch.from_numpy(qkv), None if kv is None else torch.from_numpy(kv),
+        heads=heads, uncond_rows=0 if kv is None else 1)
+    if hot:
+        assert want > 5e-3
+        np.testing.assert_allclose(got, want, rtol=1e-3)
+    else:
+        assert got < 1e-3 and want < 1e-3
+
+
+def test_calibrate_fixed_shift_forces_and_clears_the_online_softmax(
+        monkeypatch):
+    """As JAX's: hot logits force the online-max softmax process-wide (the
+    site then passes fixed_shift=False), a clean calibration clears it, and
+    the environment is left as it was."""
+    monkeypatch.setenv("IDMVTON_FLASH_FIXED_SHIFT", "1")
+    monkeypatch.setattr(A, "_FIXED_SHIFT_FORCED_OFF", False)
+    hot = _hot_qkv()
+    jrep = jpa.calibrate_fixed_shift(jnp.asarray(hot), heads=1)
+    try:
+        rep = A.calibrate_fixed_shift(torch.from_numpy(hot), heads=1)
+        assert not rep["fixed_shift"] and not jrep["fixed_shift"]
+        assert not A._fixed_shift()
+        np.testing.assert_allclose(rep["max_error"], jrep["max_error"],
+                                   rtol=1e-3)
+        clean = torch.from_numpy(_np(56, 1, 128, 384))
+        rep = A.calibrate_fixed_shift(clean, heads=2)
+        assert rep["fixed_shift"] and rep["max_error"] < 5e-3
+        assert A._fixed_shift()
+        assert A.os.environ["IDMVTON_FLASH_FIXED_SHIFT"] == "1"
+    finally:
+        jpa.calibrate_fixed_shift(jnp.asarray(_np(56, 1, 128, 384)), heads=2)

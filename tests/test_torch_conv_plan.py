@@ -147,6 +147,48 @@ def test_plan_picks_by_shape_and_rejects_what_the_kernel_cannot_take():
         conv_plan(1, 8, 8, 128, 128, tile=(64, 64))
 
 
+# the fp32 decode's conv shapes (VAEConfig.force_upcast, decoder B=2)
+VAE_DEC = [(2,) + s for s in VAE if s[0] <= 1024]
+
+
+@pytest.mark.parametrize("shape", VAE_DEC + ODD)
+def test_fp32_plan_covers_decode_shapes(shape):
+    """An fp32 x: BM = 128 tiles only (two stages of its raw 256-byte A rows
+    fit), the x box unswizzled with 4-byte strides; coverage as bf16."""
+    b, h, w, cin, cout = shape
+    plan = conv_plan(*shape, f32=True)
+    assert (plan.bm, plan.bn) in cuda_conv.F32_TILES
+    pix = tile_pixels(plan, b, h, w, False)
+    assert (np.bincount(pix[pix >= 0], minlength=b * h * w) == 1).all()
+    assert plan.x_map.dims == (cin, w, h, b)
+    assert plan.x_map.strides == (4 * cin, 4 * cin * w, 4 * cin * w * h)
+    assert plan.x_map.box == (BK, plan.tile_w, plan.tile_h, 1)
+    assert plan.x_map.swizzle == 0 and plan.x_map.box[0] * 4 <= 256
+    assert plan.w_map == conv_plan(*shape, tile=(plan.bm, plan.bn)).w_map
+    for tile in TILES:
+        if tile in cuda_conv.F32_TILES:
+            conv_plan(*shape, f32=True, tile=tile)
+        else:
+            with pytest.raises(ValueError, match="tile"):
+                conv_plan(*shape, f32=True, tile=tile)
+
+
+def test_fp32_predicates_route_the_decode():
+    """The sites' predicates take an fp32 x as they take bf16; the hblock
+    rule counts its 4-byte elements, so the fp32 decode's 128x96 level takes
+    conv3x3 and its larger levels conv3x3_hblock, and an image of 25 MiB in
+    bf16 takes conv3x3 but of 50 MiB in fp32 conv3x3_hblock."""
+    k = torch.zeros(3, 3, 512, 512, dtype=torch.bfloat16)
+    small = torch.zeros(1, 128, 96, 512)
+    mid = torch.zeros(1, 128, 192, 512)
+    big = torch.zeros(1, 256, 192, 512)
+    assert cuda_conv.conv3x3_supported(small, k)
+    assert cuda_conv.conv3x3_supported(mid.bfloat16(), k)
+    for x in (mid, big):
+        assert not cuda_conv.conv3x3_supported(x, k)
+        assert cuda_conv.conv3x3_hblock_supported(x, k)
+
+
 def test_predicates_accept_what_they_did():
     """The kernel's limits moved to 16-byte strides (Cin, Cout % 8); the
     sites' predicates keep their shape rule, so no site leaves the

@@ -20,6 +20,12 @@ probabilities to bf16 for the PV product and their plain versions the
 normalized ones: the same bf16 bound.
 The GroupNorm statistics are fp32 sums in another order (deterministic,
 no atomics): max error <= 1e-5 * max |sum of squares|.
+The conv kernel on an fp32 x narrows x to bf16 and multiplies by the bf16
+weights with fp32 accumulation (the TPU kernel's DEFAULT precision): against
+the plain version in full fp32 (``torch.backends.cudnn.allow_tf32 = False``,
+set here) it differs by x's bf16 rounding, within the bf16 bound; against
+the plain version fed the bf16-rounded x it differs only in summation
+order, max |diff| <= 1e-4 * max |plain| (K up to 9 * 2560 fp32 terms).
 """
 
 import pytest
@@ -32,10 +38,15 @@ BF16_TOL = 2e-2
 SUM_TOL = 1e-5
 
 
+F32_TOL = 1e-4
+
+
 @pytest.fixture(scope="module")
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", 0)
 
 
@@ -49,16 +60,27 @@ def _rel_err(got, want):
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-6))
 
 
-@pytest.mark.parametrize("m,c,n,geglu,bias", [
-    (200, 128, 384, False, True), (64, 256, 128, True, True),
-    (77, 640, 1920, False, False), (130, 1280, 256, True, False)])
-def test_ln_linear_kernel(dev, m, c, n, geglu, bias):
-    g = torch.Generator(device=dev).manual_seed(0)
-    x = _randn(g, 2, m, c, dev=dev, scale=3.0) + 1.0
+def _ln_inputs(seed, lead, c, n, geglu, bias, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = _randn(g, *lead, c, dev=dev, scale=3.0) + 1.0
     gamma = _randn(g, c, dev=dev, dtype=torch.float32) * 0.2 + 1.0
     beta = _randn(g, c, dev=dev, dtype=torch.float32) * 0.1
     w = _randn(g, c, (2 if geglu else 1) * n, dev=dev, scale=c ** -0.5)
-    b = _randn(g, w.shape[1], dev=dev, dtype=torch.float32) if bias else None
+    b = (_randn(g, w.shape[1], dev=dev, dtype=torch.float32)
+         if bias else None)
+    if bias == "bf16":   # the sites' bf16 bias, widened by the kernel
+        b = b.bfloat16()
+    return x, gamma, beta, w, b
+
+
+@pytest.mark.parametrize("m,c,n,geglu,bias", [
+    (200, 128, 384, False, "fp32"), (64, 256, 128, True, "fp32"),
+    (77, 640, 1920, False, None), (130, 1280, 256, True, None),
+    # ragged output tiles (N off the 256-wide tile), a bf16 bias, C = 64
+    (129, 640, 640, False, "bf16"), (300, 64, 136, True, "bf16"),
+    (1, 384, 1280, True, "fp32")])
+def test_ln_linear_kernel(dev, m, c, n, geglu, bias):
+    x, gamma, beta, w, b = _ln_inputs(0, (2, m), c, n, geglu, bias, dev)
     before = cuda_norm.ln_linear.launches
     got = cuda_norm.ln_linear(x, gamma, beta, w, b, geglu=geglu)
     want = cuda_norm.ln_linear_torch(x, gamma, beta, w, b, geglu=geglu)
@@ -68,7 +90,45 @@ def test_ln_linear_kernel(dev, m, c, n, geglu, bias):
     assert _rel_err(got, want) <= BF16_TOL
 
 
-@pytest.mark.parametrize("rows,c", [(3, 128), (1000, 640), (77, 1280)])
+# every ln_linear shape of the path: TryonNet (B = 4) and GarmentNet (B =
+# 2) at 768x1024 (to_qkv, to_q, GEGLU at the 640 and 1280 levels), the tiny
+# UNet's 128-wide level, and ragged M (a 128-row block past the rows)
+LN_PATH = [((4, 3072), 640, 1920, False), ((4, 3072), 640, 640, False),
+           ((4, 3072), 640, 2560, True), ((4, 768), 1280, 3840, False),
+           ((4, 768), 1280, 1280, False), ((4, 768), 1280, 5120, True),
+           ((2, 3072), 640, 640, False), ((2, 3072), 640, 2560, True),
+           ((2, 768), 1280, 1280, False), ((2, 768), 1280, 5120, True),
+           ((4, 768), 128, 384, False), ((4, 768), 128, 128, False),
+           ((4, 768), 128, 512, True), ((2, 768), 128, 512, True),
+           ((3, 1000), 640, 1920, False), ((1, 1500), 1280, 5120, True)]
+
+
+@pytest.mark.parametrize("bias", [None, "bf16"])
+@pytest.mark.parametrize("lead,c,n,geglu", LN_PATH)
+def test_ln_linear_path_shapes(dev, lead, c, n, geglu, bias):
+    x, gamma, beta, w, b = _ln_inputs(12, lead, c, n, geglu, bias, dev)
+    got = cuda_norm.ln_linear(x, gamma, beta, w, b, geglu=geglu)
+    want = cuda_norm.ln_linear_torch(x, gamma, beta, w, b, geglu=geglu)
+    torch.cuda.synchronize()
+    assert got.shape == lead + (n,)
+    assert _rel_err(got, want) <= BF16_TOL
+
+
+@pytest.mark.parametrize("tile", cuda_norm.LN_TILES)
+@pytest.mark.parametrize("geglu", [False, True])
+def test_ln_linear_every_tile(dev, tile, geglu):
+    """Each instance (BN x GEGLU), forced through the plan, at ragged rows
+    and columns and a C of 11 chunks."""
+    x, gamma, beta, w, b = _ln_inputs(13, (3, 111), 704, 392, geglu, "fp32",
+                                      dev)
+    got = cuda_norm.ln_linear(x, gamma, beta, w, b, geglu=geglu, tile=tile)
+    want = cuda_norm.ln_linear_torch(x, gamma, beta, w, b, geglu=geglu)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= BF16_TOL
+
+
+@pytest.mark.parametrize("rows,c", [(3, 128), (1000, 640), (77, 1280),
+                                    (6144, 640), (1536, 1280)])
 def test_fused_layer_norm_kernel(dev, rows, c):
     g = torch.Generator(device=dev).manual_seed(1)
     x = _randn(g, rows, c, dev=dev, scale=2.0) - 0.5
@@ -119,6 +179,63 @@ def test_conv3x3_kernel(dev, b, h, w, cin, cout, bias):
     assert _rel_err(got, want) <= BF16_TOL
 
 
+@pytest.mark.parametrize("b,h,w,cin,cout", [
+    (2, 10, 12, 128, 256), (1, 16, 24, 320, 320), (1, 12, 16, 160, 128),
+    (2, 32, 24, 512, 512), (1, 19, 27, 256, 136),
+    # the fp32 decode's shapes (batch 1, cut in H and W): conv_in 4 ->
+    # (not a kernel site), the 128x96 .. 1024x768 levels' channel pairs
+    (1, 16, 24, 512, 512), (1, 32, 48, 512, 256), (1, 64, 96, 256, 128),
+    (1, 64, 96, 128, 128)])
+def test_conv3x3_kernel_fp32(dev, b, h, w, cin, cout):
+    """An fp32 x through both conv wrappers (and the padded-row variant):
+    fp32 out, against the fp32 plain version and, tightly, against the plain
+    version fed the bf16-rounded x."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    x = _randn(g, b, h, w, cin, dev=dev, dtype=torch.float32)
+    k = _randn(g, 3, 3, cin, cout, dev=dev, scale=(9 * cin) ** -0.5)
+    bb = _randn(g, cout, dev=dev)
+    before = (cuda_conv.conv3x3.launches, cuda_conv.conv3x3_hblock.launches)
+    got = cuda_conv.conv3x3(x, k, bb)
+    got_h = cuda_conv.conv3x3_hblock(x, k, bb)
+    got_p = cuda_conv.conv3x3_padacc(x, k, bb)
+    want = cuda_conv.conv3x3_torch(x, k, bb)
+    want_r = cuda_conv.conv3x3_torch(x.bfloat16().float(), k, bb)
+    torch.cuda.synchronize()
+    assert (cuda_conv.conv3x3.launches, cuda_conv.conv3x3_hblock.launches) \
+        == (before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.float32 and got.shape == (b, h, w, cout)
+    assert torch.equal(got, got_h)
+    assert _rel_err(got, want) <= BF16_TOL
+    assert _rel_err(got, want_r) <= F32_TOL
+    assert _rel_err(got_p, want_r) <= F32_TOL
+
+
+def test_vae_decode_fp32_runs_the_conv_kernels(dev):
+    """VAEConfig.force_upcast: the decode runs in fp32 through the conv and
+    GroupNorm statistics kernels, against the plain decode of the same
+    module on the CPU (each conv rounds its input to bf16: the bf16
+    bound)."""
+    import copy
+    import dataclasses
+    from idmvton_tpu_torch.core.config import VAEConfig
+    from idmvton_tpu_torch.models.layers import reset_parameters_
+    from idmvton_tpu_torch.models.vae import VAE
+    cfg = dataclasses.replace(VAEConfig.tiny(), force_upcast=True)
+    vae = VAE(cfg, dtype=torch.bfloat16, device=dev)
+    reset_parameters_(vae, torch.Generator(device=dev).manual_seed(15))
+    g = torch.Generator(device=dev).manual_seed(16)
+    z = _randn(g, 2, 32, 24, cfg.latent_channels, dev=dev)
+    counts = (cuda_conv.conv3x3.launches,
+              cuda_norm.gn_spatial_stats.launches)
+    got = vae.decode(z)
+    torch.cuda.synchronize()
+    assert cuda_conv.conv3x3.launches > counts[0]
+    assert cuda_norm.gn_spatial_stats.launches > counts[1]
+    want = copy.deepcopy(vae).cpu().decode(z.cpu())
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert _rel_err(got.cpu(), want) <= BF16_TOL
+
+
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("garment,uncond,sink,fixed", [
     (False, 0, 0, True), (True, 0, 0, True), (True, 2, 0, True),
@@ -163,6 +280,52 @@ def test_flash_attention_gemm_path_shapes(dev, b, n, heads, d, garment,
     assert got.shape == (b, n, hd)
     assert cuda_attention.flash_attention_gemm.launches == before + 1
     assert _rel_err(got, want) <= BF16_TOL
+
+
+def test_fixed_shift_switch_reaches_the_kernel(dev, monkeypatch):
+    """IDMVTON_FLASH_FIXED_SHIFT and the calibration's force-off reach the
+    kernel: on logits far past the clamp (60) the online mode matches the
+    exact softmax and the fixed shift its own plain formula; the
+    SelfAttention site passes the mode as it stands at each call."""
+    from idmvton_tpu_torch.models import attention as tmod
+    from idmvton_tpu_torch.models.attention import SelfAttention
+    from idmvton_tpu_torch.models.layers import reset_parameters_
+    g = torch.Generator(device=dev).manual_seed(17)
+    n, d = 256, 128
+    rows = 1.0 + torch.arange(n, device=dev) / n
+    base = torch.full((1, n, d), 4.0, device=dev)
+    qkv = torch.cat([base, base * rows[None, :, None],
+                     _randn(g, 1, n, d, dev=dev, dtype=torch.float32)],
+                    -1).bfloat16()
+    exact = cuda_attention.flash_attention_gemm_torch(qkv, heads=1)
+    fixed = cuda_attention.flash_attention_gemm_torch(qkv, heads=1,
+                                                      fixed_shift=True)
+    assert _rel_err(fixed, exact) > 0.1
+    monkeypatch.setattr(cuda_attention, "_FIXED_SHIFT_FORCED_OFF", False)
+    for env, want in (("0", exact), ("1", fixed)):
+        monkeypatch.setenv("IDMVTON_FLASH_FIXED_SHIFT", env)
+        got = cuda_attention._gemm_attention(qkv, None, heads=1)
+        assert _rel_err(got, want) <= BF16_TOL
+    rep = cuda_attention.calibrate_fixed_shift(qkv, heads=1)
+    assert not rep["fixed_shift"] and not cuda_attention._fixed_shift()
+    got = cuda_attention._gemm_attention(qkv, None, heads=1)
+    assert _rel_err(got, exact) <= BF16_TOL
+
+    seen = []
+    real = tmod.flash_attention_gemm
+    monkeypatch.setattr(tmod, "flash_attention_gemm", lambda *a, **kw: (
+        seen.append(kw["fixed_shift"]) or real(*a, **kw)))
+    mod = SelfAttention(128, heads=2, head_dim=64, dtype=torch.bfloat16,
+                        device=dev)
+    reset_parameters_(mod, torch.Generator(device=dev).manual_seed(18))
+    x = _randn(g, 2, 300, 128, dev=dev)
+    mod(x)                                   # forced off by the calibration
+    monkeypatch.setattr(cuda_attention, "_FIXED_SHIFT_FORCED_OFF", False)
+    mod(x)                                   # env "1"
+    monkeypatch.setenv("IDMVTON_FLASH_FIXED_SHIFT", "0")
+    mod(x)
+    torch.cuda.synchronize()
+    assert seen == [False, True, False]
 
 
 @pytest.mark.parametrize("d,tile", [

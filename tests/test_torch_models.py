@@ -8,6 +8,11 @@ XLA path here (impl=None on the CPU), the port its plain path.
 Tolerances: fp32 on both sides; the formulas are the same and only the
 summation order differs, which over a few dozen layers stays below 2e-4
 (absolute and relative) at O(1) activations.
+
+The transformer block, UNet and VAE comparisons run twice: on the init's
+parameters (zero biases, unit norms) and with random biases and norm
+affines (``test_torch_affine.random_affine``, the ``random_affine`` case),
+so a bias or scale/shift fault cannot cancel out.
 """
 
 import ast
@@ -43,6 +48,7 @@ from idmvton_tpu_torch.models.resnet import (
 from idmvton_tpu_torch.models.unet import UNet
 from idmvton_tpu_torch.models.vae import VAE
 from idmvton_tpu_torch.weights.from_jax import load_module_params
+from test_torch_affine import INITS, params_for
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 2e-4
@@ -66,6 +72,14 @@ def _close(got, want, tol=TOL):
 
 def _port(module, jparams):
     return load_module_params(module, jax.tree.map(np.asarray, jparams))
+
+
+def _port_case(module, jparams, init, seed):
+    """``module`` loaded with ``jparams`` as the parity case ``init`` has
+    them (``params_for``); returns (module, that numpy tree, which the JAX
+    side runs too)."""
+    tree = params_for(init, jparams, seed)
+    return load_module_params(module, tree), tree
 
 
 def _key(i):
@@ -227,8 +241,9 @@ def test_up_and_downsample_match_jax():
            jresnet.upsample2d(ju, jnp.asarray(x), out_hw=(13, 9)))
 
 
+@pytest.mark.parametrize("init", INITS)
 @pytest.mark.parametrize("mode", ["none", "emit", "consume"])
-def test_transformer_block_matches_jax(mode):
+def test_transformer_block_matches_jax(mode, init):
     dim, heads, ctx_dim, ip = 32, 2, 24, 4
     jp = jatt.init_transformer_block(_key(3), dim, heads=heads, head_dim=16,
                                      context_dim=ctx_dim,
@@ -239,13 +254,14 @@ def test_transformer_block_matches_jax(mode):
     kw = dict(heads=heads, garment_mode=mode,
               ip_num_tokens=ip if mode == "consume" else 0)
     feat = _np(15, b // 2, 12, dim) if mode == "consume" else None
+    mod, jp = _port_case(TransformerBlock(dim, heads=heads, head_dim=16,
+                                          context_dim=ctx_dim,
+                                          ip_adapter=mode == "consume",
+                                          **F32), jp, init, 3)
     want, want_em = jatt.transformer_block(
         jp, jnp.asarray(x), jnp.asarray(ctx),
         garment_feat=None if feat is None else jnp.asarray(feat),
         garment_uncond_zero=mode == "consume", **kw)
-    mod = _port(TransformerBlock(dim, heads=heads, head_dim=16,
-                                 context_dim=ctx_dim,
-                                 ip_adapter=mode == "consume", **F32), jp)
     got, got_em = mod(_t(x), _t(ctx), garment_mode=mode,
                       garment_feat=None if feat is None else _t(feat),
                       garment_uncond_zero=mode == "consume",
@@ -262,13 +278,15 @@ def test_transformer_block_matches_jax(mode):
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def unets():
+@pytest.fixture(scope="module", params=INITS)
+def unets(request):
     g_cfg, u_cfg = jcfg.UNetConfig.tiny("emit"), jcfg.UNetConfig.tiny("consume")
     jg = junet.init_unet(_key(4), g_cfg, dtype=jnp.float32)
     ju = junet.init_unet(_key(5), u_cfg, dtype=jnp.float32)
-    tg = _port(UNet(tcfg.UNetConfig.tiny("emit"), **F32), jg)
-    tu = _port(UNet(tcfg.UNetConfig.tiny("consume"), **F32), ju)
+    tg, jg = _port_case(UNet(tcfg.UNetConfig.tiny("emit"), **F32), jg,
+                        request.param, 4)
+    tu, ju = _port_case(UNet(tcfg.UNetConfig.tiny("consume"), **F32), ju,
+                        request.param, 5)
     return g_cfg, jg, tg, u_cfg, ju, tu
 
 
@@ -312,11 +330,12 @@ def test_unet_consume_matches_jax(unets):
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def vae():
+@pytest.fixture(scope="module", params=INITS)
+def vae(request):
     cfg = jcfg.VAEConfig.tiny()
     jp = jvae.init_vae(_key(6), cfg, dtype=jnp.float32)
-    return cfg, jp, _port(VAE(tcfg.VAEConfig.tiny(), **F32), jp)
+    tv, jp = _port_case(VAE(tcfg.VAEConfig.tiny(), **F32), jp, request.param, 6)
+    return cfg, jp, tv
 
 
 def test_vae_encode_matches_jax(vae):
@@ -340,6 +359,24 @@ def test_vae_decode_matches_jax(vae):
     cfg, jp, tv = vae
     z = _np(22, 2, 2, 3, 4)
     _close(tv.decode(_t(z)), jvae.vae_decode(jp, cfg, jnp.asarray(z)))
+
+
+def test_vae_decode_force_upcast_matches_jax():
+    """VAEConfig.force_upcast with bf16 parameters: both decode a bf16
+    latent in fp32 with the bf16 weights (the card's conv kernels take that
+    fp32 x as it is; the plain path here upcasts the weights exactly)."""
+    cfg = dataclasses.replace(jcfg.VAEConfig.tiny(), force_upcast=True)
+    jp = jvae.init_vae(_key(7), cfg, dtype=jnp.bfloat16)
+    tree = params_for("random_affine", jp, 7)
+    tv = load_module_params(
+        VAE(dataclasses.replace(tcfg.VAEConfig.tiny(), force_upcast=True),
+            dtype=torch.bfloat16, device="cpu"), tree)
+    z = _np(23, 2, 2, 3, 4)
+    want = jvae.vae_decode(jax.tree.map(jnp.asarray, tree), cfg,
+                           jnp.asarray(z, jnp.bfloat16))
+    got = tv.decode(_t(z).bfloat16())
+    assert got.dtype == torch.float32 and want.dtype == jnp.float32
+    _close(got, want)
 
 
 @pytest.mark.parametrize("bigg", [False, True])

@@ -6,6 +6,10 @@ both pipelines take the same numpy inputs, posterior-mode VAE encodes
 (``vae_sample=False``) and the same injected initial / per-step noises, so
 they compute the same trajectory.
 
+Every comparison runs on the init's parameters and again with random
+biases and norm affines (``test_torch_affine.random_affine``), given to
+both stacks.
+
 Tolerances: fp32 on both sides, same formulas, other summation orders;
 through the text / vision / VAE towers and two denoise steps of both UNets
 the differences stay below 1e-4 at O(1) values (2e-4 for the decoded
@@ -23,6 +27,7 @@ from idmvton_tpu_torch.pipeline import tryon as ttryon
 from idmvton_tpu_torch.weights.from_jax import (
     load_jax_params, load_module_params,
 )
+from test_torch_affine import INITS, params_for
 
 B, H, W, STEPS = 2, 32, 32, 2
 
@@ -33,19 +38,22 @@ def _close(got, want, tol=1e-4):
                                atol=tol, rtol=tol)
 
 
-@pytest.fixture(scope="module")
-def stacks():
+@pytest.fixture(scope="module", params=INITS)
+def stacks(request):
+    """(JAX stack, its parameters as the case has them, the port's stack
+    loaded with them)."""
     jm = jtryon.TryonModels.init(jax.random.PRNGKey(0), tiny=True,
                                  dtype=jnp.float32)
     tm = ttryon.TryonModels.init(None, tiny=True, dtype=torch.float32,
                                  device="cpu")
-    load_jax_params(tm, jax.tree.map(np.asarray, jm.params()))
-    return jm, tm
+    tree = params_for(request.param, jm.params(), 7)
+    load_jax_params(tm, tree)
+    return jm, jax.tree.map(jnp.asarray, tree), tm
 
 
 @pytest.fixture(scope="module")
 def inputs(stacks):
-    jm, _ = stacks
+    jm = stacks[0]
     rng = np.random.default_rng(0)
     img = lambda: rng.uniform(-1, 1, (B, H, W, 3)).astype(np.float32)
     ids = lambda: rng.integers(0, jm.clip_l_cfg.vocab_size, (B, 7))
@@ -68,8 +76,7 @@ def _torch_in(inputs):
 
 
 def test_staged_encoder_matches_jax(stacks, inputs):
-    jm, tm = stacks
-    jp = jm.params()
+    jm, jp, tm = stacks
     want = jtryon.TryonPipeline(jm).staged_encoder(vae_sample=False)(
         jp, jax.random.PRNGKey(1), _jax_in(inputs))
     got = ttryon.TryonPipeline(tm).staged_encoder(vae_sample=False)(
@@ -82,14 +89,14 @@ def test_staged_encoder_matches_jax(stacks, inputs):
 
 @pytest.mark.parametrize("garment_cache", ["every_step", "once"])
 def test_stepwise_generate_matches_jax(stacks, inputs, garment_cache):
-    jm, tm = stacks
+    jm, jp, tm = stacks
     rng = np.random.default_rng(1)
     lat = (B, H // 8, W // 8, 4)
     init_noise = rng.standard_normal(lat).astype(np.float32)
     step_noise = rng.standard_normal((STEPS,) + lat).astype(np.float32)
     want = jtryon.TryonPipeline(jm).stepwise_generate(
         num_steps=STEPS, vae_sample=False, garment_cache=garment_cache)(
-        jm.params(), jax.random.PRNGKey(2), init_noise=jnp.asarray(init_noise),
+        jp, jax.random.PRNGKey(2), init_noise=jnp.asarray(init_noise),
         step_noise=jnp.asarray(step_noise), **_jax_in(inputs))
     phases = {}
     got = ttryon.TryonPipeline(tm).stepwise_generate(
@@ -106,14 +113,14 @@ def test_stepwise_generate_strength_matches_jax(stacks, inputs):
     """strength 0.6 of 4 steps runs the last 2 from the person image's
     posterior-mode VAE latents noised to the first of them (JAX
     ``stepwise_generate``, pipeline/tryon.py:802-832)."""
-    jm, tm = stacks
+    jm, jp, tm = stacks
     rng = np.random.default_rng(3)
     lat = (B, H // 8, W // 8, 4)
     init_noise = rng.standard_normal(lat).astype(np.float32)
     step_noise = rng.standard_normal((STEPS,) + lat).astype(np.float32)
     kw = dict(num_steps=4, strength=0.6, vae_sample=False)
     want = jtryon.TryonPipeline(jm).stepwise_generate(**kw)(
-        jm.params(), jax.random.PRNGKey(2), init_noise=jnp.asarray(init_noise),
+        jp, jax.random.PRNGKey(2), init_noise=jnp.asarray(init_noise),
         step_noise=jnp.asarray(step_noise), **_jax_in(inputs))
     got = ttryon.TryonPipeline(tm).stepwise_generate(**kw)(
         torch.Generator().manual_seed(2),
@@ -154,7 +161,7 @@ def test_strength_schedule_and_add_noise_match_jax(spacing):
 def test_stepwise_generate_draws_from_the_generator(stacks, inputs):
     """Without injected noise the run is a function of the generator's
     seed: the same seed repeats, another seed differs."""
-    _, tm = stacks
+    tm = stacks[-1]
     fn = ttryon.TryonPipeline(tm).stepwise_generate(num_steps=STEPS)
     run = lambda s: fn(torch.Generator().manual_seed(s), **_torch_in(inputs))
     a, b, c = run(5), run(5), run(6)
