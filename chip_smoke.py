@@ -13,10 +13,14 @@ failure:
    version at the shapes its path gives it (bf16; the conv kernels also on
    the fp32 decode's fp32 activations), and time the kernel, the plain
    version and, where one PyTorch call computes the same function, that
-   call (``library_ms``; the port never makes it) beside the kernel's
-   bound (its bytes over the card's memory rate or its operations over the
-   peak rate of their type, the larger) and, in the log of the attention
-   kernels, their exp floor (logits over ``EXP_RATE``); each kernel and
+   call (``library_ms``; the port never makes it), and beside #1, #8 and
+   #11 a yardstick that computes part of the function or the same in
+   several calls (``layer_norm+mm_ms``, ``int_mm_ms``: the s8 GEMM alone on
+   the kernel's codes, ``sdpa_sum_ms``: two SDPA calls summed), beside the
+   kernel's bound (its bytes over the card's memory rate or its operations
+   over the peak rate of their type, the larger) and, in the log of the
+   attention kernels, their exp floor (logits over ``EXP_RATE``); each
+   kernel and
    library call is timed eagerly and as 10 launches in a CUDA graph
    (``graph_ms``, ``library_graph_ms``: the device alone);
 4. give the full-width stack random biases and norm affines from the seed
@@ -256,6 +260,9 @@ def kernel_cases(dev):
         return dict(label=label, kern=kern, plain=plain, ins=ins, ops=ops,
                     rate=rate, tol=tol, library=library, **extra)
 
+    def bhsd(t):
+        return t.transpose(1, 2).contiguous()
+
     def ln_case(m_shape, c, n, geglu, bias):
         """As the path calls it: to_qkv / to_q have no bias, ff.proj_in a
         bf16 one (which the kernel widens). Beside it, the two-call
@@ -275,11 +282,16 @@ def kernel_cases(dev):
                         F.layer_norm(x2, (c,), g16, b16, 1e-5), w)))
 
     def ln_i8_case(m_shape, c, n, geglu, bias):
+        """As the variant path calls it: to_qkv has no bias, ff.proj_in a
+        bf16 one. Beside it, the GEMM alone on the kernel's own codes,
+        torch._int_mm (cuBLASLt s8 x s8 -> s32): a yardstick, not the same
+        function (no LayerNorm, quantization or epilogue)."""
         x = rn(*m_shape, c)
         gam, bet = rn(c, dtype=torch.float32) * 0.1 + 1, rn(c, dtype=torch.float32) * 0.1
         w = rn(c, n * (2 if geglu else 1), scale=c ** -0.5)
         w_i8, w_scale = quantize_kernel_int8(w)
-        b = rn(w.shape[1], dtype=torch.float32) * 0.1 if bias else None
+        b = rn(w.shape[1]) * 0.1 if bias else None
+        codes, _ = N.ln_quant_i8(x, gam, bet)
         return case(f"x{tuple(m_shape) + (c,)} w_i8{tuple(w.shape)}"
                     f"{' geglu' if geglu else ''}",
                     lambda: N.ln_linear_i8(x, gam, bet, w_i8, w_scale, b,
@@ -290,13 +302,30 @@ def kernel_cases(dev):
                     2 * x.numel() * w.shape[1], rate="int8",
                     vs=("bf16 ln_linear_torch",
                         lambda: N.ln_linear_torch(x, gam, bet, w, b,
-                                                  geglu=geglu)))
+                                                  geglu=geglu)),
+                    time=("int_mm", lambda: torch._int_mm(codes, w_i8)))
 
     def cross_case(b, n, heads, ip):
+        """Beside it, the two-call yardstick: F.scaled_dot_product_attention
+        of each branch on head-major copies, summed in fp32 (one call
+        without an IP branch)."""
         hd = heads * 64
         q, kv = rn(b, n, hd), rn(b, 77, 2 * hd)
         kv_ip = rn(b, 16, 2 * hd) if ip else None
         ctx = 77 + (16 if ip else 0)
+
+        def heads_major(t, s, i):
+            return bhsd(t[..., i * hd:(i + 1) * hd].reshape(b, s, heads, 64))
+
+        qt = bhsd(q.reshape(b, n, heads, 64))
+        kt, vt = heads_major(kv, 77, 0), heads_major(kv, 77, 1)
+        if ip:
+            kit, vit = heads_major(kv_ip, 16, 0), heads_major(kv_ip, 16, 1)
+            two = lambda: (F.scaled_dot_product_attention(qt, kt, vt).float()
+                           + F.scaled_dot_product_attention(qt, kit,
+                                                            vit).float())
+        else:
+            two = lambda: F.scaled_dot_product_attention(qt, kt, vt)
         return case(f"q{(b, n, hd)} heads {heads} kv{tuple(kv.shape)}"
                     f"{f' kv_ip{tuple(kv_ip.shape)}' if ip else ''}",
                     lambda: A.cross_attention_small_kv(q, kv, kv_ip,
@@ -304,7 +333,7 @@ def kernel_cases(dev):
                     lambda: A.cross_attention_small_kv_torch(q, kv, kv_ip,
                                                              heads=heads),
                     [q, kv, kv_ip], 4 * b * n * hd * ctx,
-                    exps=b * heads * n * ctx)
+                    exps=b * heads * n * ctx, time=("sdpa_sum", two))
 
     def lnorm_case(shape):
         x = rn(*shape)
@@ -342,9 +371,6 @@ def kernel_cases(dev):
                     2 * b * h * w * 9 * cin * cout,
                     library=lambda: F.conv2d(xc, kc, bc, padding=1),
                     **extra)
-
-    def bhsd(t):
-        return t.transpose(1, 2).contiguous()
 
     def flash_gemm_case(b, n, heads, garment, uncond, d=64):
         hd = heads * d

@@ -83,11 +83,16 @@ class QuantLinear(nn.Module):
     layout and key names): ``kernel_i8`` (in, out) int8 with symmetric
     per-output-channel fp32 ``kernel_scale`` (out,), and the unquantized
     ``bias`` (or None). Built by ``quantize_linear_int8``; all three are
-    parameters, so the loader's every-parameter check covers them."""
+    parameters, so the loader's every-parameter check covers them.
+    ``kernel_i8`` is the (in, out) view of (out, in) storage, the K-major
+    layout the W8A8 kernel reads; ``Module.to`` and the loader's
+    ``copy_`` keep it, so the weight is stored once."""
 
     def __init__(self, in_dim, out_dim, *, bias=None, device):
         super().__init__()
-        self.kernel_i8 = _param((in_dim, out_dim), torch.int8, device)
+        self.kernel_i8 = nn.Parameter(
+            torch.empty(out_dim, in_dim, dtype=torch.int8, device=device).t(),
+            requires_grad=False)
         self.kernel_scale = _param((out_dim,), torch.float32, device)
         self.bias = bias
 

@@ -38,7 +38,13 @@ SIGNATURES = {
     # then the plan (an int64 array: cuda_norm.LnLinearPlan.c_plan)
     "idm_ln_linear": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _F, _P,
                       _P],
-    "idm_ln_linear_i8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # x, gamma, beta, w (N, C) storage, w_scale, bias, bias_bf16, codes and
+    # rs scratch, out, M, C, N, eps, then the plan (an int64 array:
+    # cuda_norm.LnLinearI8Plan.c_plan)
+    "idm_ln_linear_i8": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I,
+                         _F, _P, _P],
+    # x, gamma, beta, codes, rs, M, C, eps: the W8A8 pre-pass alone
+    "idm_ln_quant_i8": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
     "idm_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _P],
     "idm_gn_stats": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # ... B, H, W, Cin, Cout, f32, then the plan: bn, tile_h, tile_w
@@ -50,17 +56,19 @@ SIGNATURES = {
     # int64 array: cuda_attention.AttentionPlan.c_plan)
     "idm_flash_attention_gemm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
                                  _P, _P],
+    # q, kv, kv_ip, out, B, N, H, D, S_text, S_ip, scale, ip_scale, then the
+    # plan (an int64 array: cuda_attention.CrossPlan.c_plan)
     "idm_cross_attention_small_kv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                     _F, _F, _P],
+                                     _F, _F, _P, _P],
     # q, k, v, garment k, v, out, B, Sq, Skv, M, H, D, scale, then the plan
     "idm_flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _F, _P, _P],
 }
 
 # -D flags of the library that ``lib()`` builds and binds: none for the
-# port; scripts/torch_attention_tiles.py sets the attention kernel's other
+# port; scripts/torch_attention_tiles.py sets the attention kernels' other
 # ring depths, turn-taking and tiles, scripts/torch_ln_tiles.py the
-# ln_linear kernel's ring depth
+# ln_linear and ln_linear_i8 kernels' ring depths
 DEFINES: tuple = ()
 
 _lock = threading.Lock()

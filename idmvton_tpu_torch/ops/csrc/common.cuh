@@ -4,7 +4,6 @@
 #include <cuda.h>  // CUtensorMap and its enums only: nothing links libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace idm {
@@ -13,38 +12,6 @@ typedef __nv_bfloat16 bf16;
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) {
   return (a + b - 1) / b;
-}
-
-// 16-byte global -> shared async copy; pred == false zero-fills the
-// destination (src-size 0: nothing is read from `gmem`).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
 }
 
 // 8 bf16 (one 16-byte vector) <-> 8 floats
@@ -64,27 +31,6 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) p[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
   return v;
-}
-
-// Mean and 1/std of one row of C bf16 values (C % 8 == 0), warp-wide:
-// one-pass fp32 statistics with the clamped variance of the JAX package.
-__device__ __forceinline__ void ln_row_stats(const bf16* row, int C, float eps,
-                                             float& mean, float& inv) {
-  const int lane = threadIdx.x & 31;
-  float s1 = 0.f, s2 = 0.f;
-  for (int c = lane * 8; c < C; c += 256) {
-    float f[8];
-    unpack8(*reinterpret_cast<const uint4*>(row + c), f);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      s1 += f[i];
-      s2 += f[i] * f[i];
-    }
-  }
-  s1 = warp_sum(s1);
-  s2 = warp_sum(s2);
-  mean = s1 / C;
-  inv = rsqrtf(fmaxf(s2 / C - mean * mean, 0.f) + eps);
 }
 
 // ---- Hopper: mbarriers, TMA, wgmma ------------------------------------
@@ -197,6 +143,57 @@ __device__ __forceinline__ void fence_proxy_async() {
 // keeps the compiler from moving accumulator reads across a wgmma wait
 __device__ __forceinline__ void fence_operand(float& r) {
   asm volatile("" : "+f"(r)::"memory");
+}
+
+// the same for a 32-bit register (an s32 accumulator, a packed fragment)
+__device__ __forceinline__ void fence_u32(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+__device__ __forceinline__ void fence_s32(int& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ uint32_t sel4(const uint32_t (&v)[4], int i) {
+  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
+}
+
+// A persistent block's contiguous range [t0, t1) of `tiles` tiles
+__device__ __forceinline__ void tile_range(int tiles, int& t0, int& t1) {
+  t0 = (int)((long long)blockIdx.x * tiles / gridDim.x);
+  t1 = (int)((long long)(blockIdx.x + 1) * tiles / gridDim.x);
+}
+
+// The named barrier of a block's two consumer warpgroups (threads 128 ..
+// 383; barrier 0 is __syncthreads')
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Stores 8 bf16 pairs of a quad's rows as 16-byte vectors: v[u] is this
+// lane's pair (8u + 2q, +1) of the 32 columns at `dst` - 8q (u = 0..3, q
+// the lane's place in its quad); after the quad transpose by shuffles
+// lane q holds columns 8q .. 8q + 7 and writes them at dst when `ok`.
+__device__ __forceinline__ void quad_store(const uint32_t (&v)[4], int q,
+                                           bf16* dst, bool ok) {
+  uint32_t r[4];
+#pragma unroll
+  for (int sh = 0; sh < 4; ++sh)
+    r[sh] = __shfl_xor_sync(0xffffffffu, sel4(v, q ^ sh), sh);
+  if (ok)
+    *reinterpret_cast<uint4*>(dst) =
+        make_uint4(sel4(r, q), sel4(r, q ^ 1), sel4(r, q ^ 2), sel4(r, q ^ 3));
 }
 
 template <int R>
@@ -407,6 +404,136 @@ __device__ __forceinline__ void wgmma_bf16_kb<128>(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 16, fp32, registers) (+)= A (64 x 16, K-major) * B (16 x 16,
+// K-major: 16 rows of K contiguous), both bf16 in shared memory; the
+// product overwrites D where scale_d is 0.
+template <>
+__device__ __forceinline__ void wgmma_bf16_kb<16>(float* d, uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 80, fp32, registers) (+)= A (64 x 16, K-major) * B (16 x 80,
+// K-major: 80 rows of K contiguous), both bf16 in shared memory; the
+// product overwrites D where scale_d is 0.
+template <>
+__device__ __forceinline__ void wgmma_bf16_kb<80>(float* d, uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// m64nNk32 s8 x s8 -> s32, A and B both K-major in shared memory (int8
+// wgmma takes no other layout); the accumulator layout is wgmma_bf16's.
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int* d, uint64_t da, uint64_t db,
+                                         int scale_d);
+
+// D (64 x 128, s32, registers) (+)= A (64 x 32, K-major) * B (32 x 128,
+// K-major: 128 rows of K contiguous), both s8 in shared memory; the product
+// overwrites D where scale_d is 0.
+template <>
+__device__ __forceinline__ void wgmma_s8<128>(int* d, uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 256, s32, registers) (+)= A (64 x 32, K-major) * B (32 x 256,
+// K-major: 256 rows of K contiguous), both s8 in shared memory; the product
+// overwrites D where scale_d is 0.
+template <>
+__device__ __forceinline__ void wgmma_s8<256>(int* d, uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+        "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]),
+        "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]),
+        "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
+        "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D (64 x 16, fp32, registers) += A (64 x 16, bf16 in registers: the
 // m16n8k16 A fragment of each warp's 16 rows) * B (16 x 16, MN-major,
 // bf16 in shared memory).
@@ -555,21 +682,23 @@ __device__ __forceinline__ void wgmma_bf16_rs<256>(float* d, const uint32_t* a,
 }
 
 
-// cuTensorMapEncodeTiled of a bf16 (or, with f32, an fp32) tensor, fetched
-// through the runtime's entry-point query, cudaGetDriverEntryPoint (so the
-// library needs no -lcuda). dims and box innermost first, strides in bytes of dims
+// cuTensorMapEncodeTiled of a tensor of `elem`-byte elements: 2 bf16, 4
+// fp32, 1 int8 (encoded as UINT8: TMA copies bytes), fetched through the
+// runtime's entry-point query, cudaGetDriverEntryPoint (so the library
+// needs no -lcuda). dims and box innermost first, strides in bytes of dims
 // 1.. (multiples of 16).
 inline cudaError_t encode_tiled(CUtensorMap* map, const void* base, int rank,
                                 const cuuint64_t* dims,
                                 const cuuint64_t* strides,
                                 const cuuint32_t* box, int swizzle,
-                                bool f32 = false) {
+                                int elem = 2) {
   typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                              void*, const cuuint64_t*, const cuuint64_t*,
                              const cuuint32_t*, const cuuint32_t*,
                              CUtensorMapInterleave, CUtensorMapSwizzle,
                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
   static Encode encode = nullptr;
+  if (elem != 1 && elem != 2 && elem != 4) return cudaErrorInvalidValue;
   if (encode == nullptr) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -585,12 +714,11 @@ inline cudaError_t encode_tiled(CUtensorMap* map, const void* base, int rank,
                                 : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                 : swizzle == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
                                                 : CU_TENSOR_MAP_SWIZZLE_NONE;
-  CUresult r = encode(map,
-                      f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                      rank,
-                      const_cast<void*>(base), dims, strides, box, unit,
-                      CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+  const CUtensorMapDataType type = elem == 1   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                   : elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUresult r = encode(map, type, rank, const_cast<void*>(base), dims, strides,
+                      box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

@@ -50,7 +50,7 @@ extern "C" int idm_conv3x3(const void* x, const void* w, const void* bias,
   const cuuint32_t box[4] = {BK, (cuuint32_t)tile_w, (cuuint32_t)tile_h, 1};
   // fp32: 256-byte box rows, unswizzled (the consumers narrow them)
   cudaError_t e = idm::encode_tiled(&xmap, x, 4, dims, strides, box,
-                                    f32 ? 0 : 128, f32 != 0);
+                                    f32 ? 0 : 128, f32 ? 4 : 2);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (f32) return (int)launch<kHalo, true>(bm, bn, xmap, w, Cin, bias, out, g, st);

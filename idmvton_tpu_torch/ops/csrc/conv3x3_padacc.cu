@@ -50,7 +50,7 @@ extern "C" int idm_conv3x3_padacc(const void* xp, const void* w,
   const cuuint64_t strides[1] = {(cuuint64_t)Cin * (f32 ? 4 : 2)};
   const cuuint32_t box[2] = {BK, (cuuint32_t)bm};
   cudaError_t e = idm::encode_tiled(&xmap, xp, 2, dims, strides, box,
-                                    f32 ? 0 : 128, f32 != 0);
+                                    f32 ? 0 : 128, f32 ? 4 : 2);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (f32)

@@ -64,6 +64,9 @@
 namespace idm_attn {
 
 using idm::bf16;
+using idm::ex2;
+using idm::fence_u32;
+using idm::pack_bf16x2;
 
 // The ring depth and the consumers' turn-taking: the values
 // scripts/torch_attention_tiles.py's sweep chose, which builds the others
@@ -121,9 +124,10 @@ struct Cfg {
 };
 
 // A 4-D TMA map as the plan gives it: dims and box innermost first, byte
-// strides of dims 1..3, the swizzle span in bytes; dims[0] == 0: no map.
+// strides of dims 1..3, the swizzle span in bytes, the element size;
+// dims[0] == 0: no map.
 struct MapDesc {
-  long long dims[4], strides[3], box[4], swizzle;
+  long long dims[4], strides[3], box[4], swizzle, elem;
 };
 
 // cuda_attention.py::AttentionPlan.c_plan, field for field (int64 each)
@@ -135,7 +139,7 @@ struct Plan {
   long long heads0[5];      // head coordinates of Q, K, V, garment K, V
   MapDesc maps[5];          // q, k, v, garment k, garment v
 };
-static_assert(sizeof(Plan) == 73 * sizeof(long long), "Plan");
+static_assert(sizeof(Plan) == 78 * sizeof(long long), "Plan");
 
 struct Args {
   int Nq, N, M;        // query rows, own keys, garment keys (0: none)
@@ -177,13 +181,8 @@ inline cudaError_t encode_map(CUtensorMap* map, const void* base,
   for (int j = 0; j < 4; ++j)
     dims[j] = (cuuint64_t)m.dims[j], box[j] = (cuuint32_t)m.box[j];
   for (int j = 0; j < 3; ++j) strides[j] = (cuuint64_t)m.strides[j];
-  return idm::encode_tiled(map, base, 4, dims, strides, box, (int)m.swizzle);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
+  return idm::encode_tiled(map, base, 4, dims, strides, box, (int)m.swizzle,
+                           (int)m.elem);
 }
 
 __device__ __forceinline__ float neg_inf() {  // a masked logit
@@ -196,15 +195,6 @@ __device__ __forceinline__ void named_sync(int id) {
 
 __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ void fence_u32(uint32_t& r) {
-  asm volatile("" : "+r"(r)::"memory");
 }
 
 // S (64 x BKV) = Q K^T over DP / 16 k steps: Q (this warpgroup's 64 rows)

@@ -87,9 +87,9 @@ struct Cfg {
 };
 
 // A 2-D TMA map as the plan gives it: dims and box innermost first, the
-// byte stride of dim 1, the swizzle span in bytes.
+// byte stride of dim 1, the swizzle span in bytes, the element size.
 struct MapDesc {
-  long long dims[2], stride, box[2], swizzle;
+  long long dims[2], stride, box[2], swizzle, elem;
 };
 
 // cuda_norm.py::LnLinearPlan.c_plan, field for field (int64 each)
@@ -100,7 +100,7 @@ struct Plan {
   long long n_out, kc;                  // output columns; 64-deep K chunks
   MapDesc x_map, w_map;
 };
-static_assert(sizeof(Plan) == 20 * sizeof(long long), "Plan");
+static_assert(sizeof(Plan) == 22 * sizeof(long long), "Plan");
 
 struct Args {
   const float2* stats;  // (M,) (inv, -mean * inv) of each row
@@ -111,19 +111,6 @@ struct Args {
   bf16* out;
   int M, n_out, kc, n_tiles, tiles;
 };
-
-__device__ __forceinline__ void fence_u32(uint32_t& r) {
-  asm volatile("" : "+r"(r)::"memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t sel4(const uint32_t (&v)[4], int i) {
-  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
-}
 
 __device__ __forceinline__ uint32_t lds32(const uint8_t* p) {
   uint32_t v;
@@ -138,8 +125,8 @@ __device__ __forceinline__ uint32_t norm2(uint32_t xv, float2 st, float2 g,
   if (IDM_LN_PROBE & 2) return xv;
   const float2 f =
       __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xv));
-  return pack_bf16x2(fmaf(fmaf(f.x, st.x, st.y), g.x, b.x),
-                     fmaf(fmaf(f.y, st.x, st.y), g.y, b.y));
+  return idm::pack_bf16x2(fmaf(fmaf(f.x, st.x, st.y), g.x, b.x),
+                          fmaf(fmaf(f.y, st.x, st.y), g.y, b.y));
 }
 
 // gelu(v) = v Phi(v) with erf by Abramowitz-Stegun 7.1.26 (|error| <=
@@ -166,12 +153,6 @@ __device__ __forceinline__ float2 bias2(const Args& a, int col) {
                                           col);
 }
 
-// the block's contiguous range [t0, t1) of the tiles
-__device__ __forceinline__ void tile_range(int tiles, int& t0, int& t1) {
-  t0 = (int)((long long)blockIdx.x * tiles / gridDim.x);
-  t1 = (int)((long long)(blockIdx.x + 1) * tiles / gridDim.x);
-}
-
 template <int BN, bool GEGLU>
 __global__ void __launch_bounds__(THREADS, 1)
     ln_linear_kernel(const __grid_constant__ CUtensorMap xmap,
@@ -184,7 +165,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * C::STAGE);
   uint64_t* empty = full + STAGES;
   int t0, t1;
-  tile_range(a.tiles, t0, t1);
+  idm::tile_range(a.tiles, t0, t1);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -305,13 +286,13 @@ __global__ void __launch_bounds__(THREADS, 1)
         issue(s, fb);
         idm::wgmma_wait<1>();
 #pragma unroll
-        for (int i = 0; i < 16; ++i) fence_u32(fa[i]);
+        for (int i = 0; i < 16; ++i) idm::fence_u32(fa[i]);
       } else {
         fragments(s, k, fa);
         issue(s, fa);
         idm::wgmma_wait<1>();
 #pragma unroll
-        for (int i = 0; i < 16; ++i) fence_u32(fb[i]);
+        for (int i = 0; i < 16; ++i) idm::fence_u32(fb[i]);
       }
       release(prev);
       prev = s;
@@ -319,8 +300,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     idm::wgmma_wait<0>();
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
-      fence_u32(fa[i]);
-      fence_u32(fb[i]);
+      idm::fence_u32(fa[i]);
+      idm::fence_u32(fb[i]);
     }
     release(prev);
 #pragma unroll
@@ -343,7 +324,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int col = c32 + 8 * q;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        uint32_t v[4], r[4];
+        uint32_t v[4];
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const int e = (4 * jj + u) * 4 + 2 * i;
@@ -354,18 +335,10 @@ __global__ void __launch_bounds__(THREADS, 1)
             v0 *= gelu_erf(q0);
             v1 *= gelu_erf(q1);
           }
-          v[u] = pack_bf16x2(v0, v1);
+          v[u] = idm::pack_bf16x2(v0, v1);
         }
-        // quad transpose: r[s] is pair q ^ s of block 4jj + q, from lane
-        // q ^ s
-#pragma unroll
-        for (int sh = 0; sh < 4; ++sh)
-          r[sh] = __shfl_xor_sync(0xffffffffu, sel4(v, q ^ sh), sh);
-        const uint4 o = make_uint4(sel4(r, q), sel4(r, q ^ 1), sel4(r, q ^ 2),
-                                   sel4(r, q ^ 3));
-        const int row = r0 + 8 * i;
-        if (row < a.M && col < a.n_out)
-          *reinterpret_cast<uint4*>(a.out + (size_t)row * a.n_out + col) = o;
+        idm::quad_store(v, q, a.out + (size_t)(r0 + 8 * i) * a.n_out + col,
+                        r0 + 8 * i < a.M && col < a.n_out);
       }
     }
   }
@@ -409,7 +382,8 @@ inline cudaError_t encode_map(CUtensorMap* map, const void* base,
   const cuuint64_t dims[2] = {(cuuint64_t)m.dims[0], (cuuint64_t)m.dims[1]};
   const cuuint64_t strides[1] = {(cuuint64_t)m.stride};
   const cuuint32_t box[2] = {(cuuint32_t)m.box[0], (cuuint32_t)m.box[1]};
-  return idm::encode_tiled(map, base, 2, dims, strides, box, (int)m.swizzle);
+  return idm::encode_tiled(map, base, 2, dims, strides, box, (int)m.swizzle,
+                           (int)m.elem);
 }
 
 template <int BN, bool GEGLU>

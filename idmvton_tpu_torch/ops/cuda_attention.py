@@ -20,8 +20,9 @@ softmax.
 ``cross_attention_small_kv`` (``csrc/cross_attention_small_kv.cu``, the
 opt-in ``IDMVTON_CROSS_KERNEL=1`` branch of cross-attention) attends the
 to_q output over the fused to_kv output of the 77 text tokens and,
-separately, of the 16 IP tokens, in GEMM layouts end to end; its plain
-version is ``cross_attention_small_kv_torch``.
+separately, of the 16 IP tokens, in GEMM layouts end to end (TMA boxes and
+``wgmma``, its geometry from ``cross_attention_plan``); its plain version
+is ``cross_attention_small_kv_torch``.
 
 ``flash_attention`` / ``flash_attention_concat_kv`` /
 ``flash_attention_fused_qkv`` (``csrc/flash_attention.cu``, counterparts of
@@ -123,12 +124,14 @@ def _heads_map(d, dp, heads, rows, batch, row_stride, batch_stride,
 
 
 def _c_plan(fields, maps) -> ctypes.Array:
-    """A C entry point's Plan (flash_attention.cuh's, ln_linear.cu's): the
-    int64 fields, then each map's dims, byte strides, box and swizzle (zeros
-    where there is no map)."""
+    """A C entry point's Plan (flash_attention.cuh's, ln_linear.cu's,
+    ln_linear_i8.cu's, cross_attention_small_kv.cu's): the int64 fields,
+    then each map's dims, byte strides, box, swizzle and element size (zeros
+    where there is no map: only 4-D maps are optional)."""
     vals = list(fields)
     for t in maps:
-        vals += [*t.dims, *t.strides, *t.box, t.swizzle] if t else [0] * 12
+        vals += [*t.dims, *t.strides, *t.box, t.swizzle, t.elem] if t \
+            else [0] * 13
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
@@ -563,12 +566,70 @@ def cross_attention_small_kv_torch(q, kv, kv_ip=None, *, heads: int,
     return out.to(q.dtype).reshape(b, n, hd)
 
 
+CROSS_BQ, CROSS_GC = 128, 128   # queries a tile; columns a head group
+CROSS_KC = (80, 16)             # key rows a chunk: text, IP
+
+
+class CrossPlan(NamedTuple):
+    dp: int                 # head dim: the kernel's instance
+    groups: int             # 128-column head groups
+    q_tiles: int            # 128-query tiles of a (batch row, group)
+    tiles: int              # b * groups * q_tiles, query tiles fastest
+    grid: int               # persistent blocks, each a contiguous range
+    text_chunks: int        # CROSS_KC[0]-row chunks of the text context
+    ip_chunks: int          # CROSS_KC[1]-row chunks of the IP context
+    q_map: TensorMap        # q (B, N, H*D): dims (D, H, N, B)
+    kv_map: TensorMap       # kv (B, S, 2*H*D): dims (D, 2H, S, B)
+    ip_map: Optional[TensorMap]   # kv_ip, or None
+    c_plan: ctypes.Array    # all of the above as the C entry point reads it
+
+
+@functools.lru_cache(maxsize=1024)
+def cross_attention_plan(b: int, n: int, heads: int, d: int, s_text: int,
+                         s_ip: int = 0, sms: int = SMS) -> CrossPlan:
+    """Launch geometry of the small-KV cross-attention kernel for q (b, n,
+    heads * d) over kv (b, s_text, 2 * heads * d) and, for s_ip > 0, kv_ip
+    (b, s_ip, 2 * heads * d): the tiles ((batch row, head group) outer, so a
+    block's range keeps a group's K/V resident), the grid and the three
+    tensor maps, each box one head's d columns (two 64-column boxes at d =
+    128) of CROSS_BQ query or CROSS_KC key rows. Raises on what the kernel
+    cannot take."""
+    if d not in KERNEL_HEAD_DIMS or (heads * d) % CROSS_GC:
+        raise ValueError(f"cross_attention_small_kv kernel: {heads} heads of "
+                         f"{d} (H*D % 128 == 0, head dim one of "
+                         f"{KERNEL_HEAD_DIMS})")
+    if min(b, n, heads, s_text) < 1 or s_ip < 0:
+        raise ValueError(f"cross_attention_small_kv kernel: b {b}, n {n}, "
+                         f"heads {heads}, s_text {s_text}, s_ip {s_ip}")
+    hd = heads * d
+    groups = hd // CROSS_GC
+    q_tiles = -(-n // CROSS_BQ)
+    tiles = b * groups * q_tiles
+    grid = min(tiles, sms)
+    q_map = _heads_map(d, d, heads, n, b, hd, n * hd, CROSS_BQ)
+    kv_map = _heads_map(d, d, 2 * heads, s_text, b, 2 * hd, s_text * 2 * hd,
+                        CROSS_KC[0])
+    ip_map = (_heads_map(d, d, 2 * heads, s_ip, b, 2 * hd, s_ip * 2 * hd,
+                         CROSS_KC[1]) if s_ip else None)
+    maps = (q_map, kv_map, ip_map)
+    if tiles > INT32_MAX or any(
+            t is not None and (max(t.dims) >= _TMA_DIM
+                               or max(t.strides) >= _TMA_STRIDE)
+            for t in maps):
+        raise ValueError(f"cross_attention_small_kv kernel: q ({b}, {n}, "
+                         f"{hd}) overflows its int32 tiles or TMA's limits")
+    fields = (d, groups, q_tiles, tiles, grid, -(-s_text // CROSS_KC[0]),
+              -(-s_ip // CROSS_KC[1]))
+    return CrossPlan(*fields, *maps, _c_plan(fields, maps))
+
+
 def cross_attention_small_kv(q, kv, kv_ip=None, *, heads: int,
                              scale: Optional[float] = None,
                              ip_scale: float = 1.0):
     """q (B, N, H*D) merged heads (the to_q output); kv (B, S_text, 2*H*D)
     the fused to_kv output [K | V]; kv_ip (B, S_ip, 2*H*D) or None. All
-    bf16; returns (B, N, H*D) bf16."""
+    bf16; returns (B, N, H*D) bf16. The launch geometry is
+    ``cross_attention_plan``'s."""
     b, n, hd = q.shape
     d = hd // heads
     if hd != heads * d or d not in KERNEL_HEAD_DIMS or hd % _LANE:
@@ -583,14 +644,18 @@ def cross_attention_small_kv(q, kv, kv_ip=None, *, heads: int,
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty_like(q)
     dev = q.device
-    _build.call("idm_cross_attention_small_kv",
-                _build.ptr(q, "q", torch.bfloat16),
-                _build.ptr(kv, "kv", torch.bfloat16, dev),
-                _build.ptr(kv_ip, "kv_ip", torch.bfloat16, dev),
-                _build.ptr(out, "out", torch.bfloat16),
-                b, n, heads, d, kv.shape[1],
-                0 if kv_ip is None else kv_ip.shape[1],
-                float(scale), float(ip_scale), _build.stream_ptr(dev))
+    ptrs = (_build.ptr(q, "q", torch.bfloat16),
+            _build.ptr(kv, "kv", torch.bfloat16, dev),
+            _build.ptr(kv_ip, "kv_ip", torch.bfloat16, dev),
+            _build.ptr(out, "out", torch.bfloat16))
+    s_ip = 0 if kv_ip is None else kv_ip.shape[1]
+    if n == 0 or b == 0:
+        return out
+    plan = cross_attention_plan(b, n, heads, d, kv.shape[1], s_ip,
+                                sms=_sm_count(dev.index))
+    _build.call("idm_cross_attention_small_kv", *ptrs, b, n, heads, d,
+                kv.shape[1], s_ip, float(scale), float(ip_scale),
+                plan.c_plan, _build.stream_ptr(dev))
     cross_attention_small_kv.launches += 1
     return out
 

@@ -62,11 +62,13 @@ def _cdiv(a: int, b: int) -> int:
 
 class TensorMap(NamedTuple):
     """A TMA descriptor as the C entry point encodes it: dims and box
-    innermost first, strides in bytes of dims 1.., swizzle span in bytes."""
+    innermost first, strides in bytes of dims 1.., swizzle span in bytes,
+    element size in bytes (2 bf16, 4 fp32, 1 int8)."""
     dims: tuple
     strides: tuple
     box: tuple
     swizzle: int
+    elem: int = 2
 
 
 class ConvPlan(NamedTuple):
@@ -111,14 +113,14 @@ def _tile_plan(b, h, w, cin, cout, padded, bm, bn, f32=False) -> ConvPlan:
         tile_h = tile_w = 0
         m_tiles = b * tiles_per_image
         x_map = TensorMap((cin, b * (h + 2) * wp), (es * cin,), (BK, bm),
-                          swizzle)
+                          swizzle, es)
     else:
         tile_h, tile_w = _pick_tile_hw(h, w, bm)
         tiles_per_image = 0
         m_tiles = b * _cdiv(h, tile_h) * _cdiv(w, tile_w)
         x_map = TensorMap((cin, w, h, b), (es * cin, es * cin * w,
                                            es * cin * w * h),
-                          (BK, tile_w, tile_h, 1), swizzle)
+                          (BK, tile_w, tile_h, 1), swizzle, es)
     n_tiles = _cdiv(cout, bn)
     return ConvPlan(bm, bn, n_tiles, m_tiles, m_tiles * n_tiles, tile_h,
                     tile_w, tiles_per_image, x_map, w_map)

@@ -5,7 +5,7 @@ launches its CUDA kernel (``csrc/ln_linear.cu``, ``csrc/ln_linear_i8.cu``,
 ``csrc/gn_stats.cu``) on CUDA tensors and raises on anything else (CPU
 tensors, types the kernel does not take: bf16 activations, int8 weights
 for the W8A8 kernel, fp32 also for the GroupNorm statistics, a bf16 or
-fp32 bias for ``ln_linear``); the
+fp32 bias for ``ln_linear`` and ``ln_linear_i8``); the
 ``*_torch`` function beside it is its plain version (the JAX package's XLA
 formula), which the sites take on CPU tensors and which the tests and
 ``chip_smoke.py`` compare against. The ``*_supported`` predicates are shape
@@ -16,9 +16,12 @@ All statistics are one-pass fp32 with the clamped variance
 ``var = max(E[x^2] - E[x]^2, 0)`` of the JAX package (not the two-pass
 statistics of ``F.layer_norm`` / ``F.group_norm``).
 
-``ln_linear_plan`` is the one source of the ``ln_linear`` kernel's launch
-geometry (its tile, grid and tensor maps, passed to the C entry point as an
-int64 array), cached per shape.
+``ln_linear_plan`` and ``ln_linear_i8_plan`` are the one source of the
+``ln_linear`` and ``ln_linear_i8`` kernels' launch geometry (tile, grid and
+tensor maps, passed to the C entry point as an int64 array), cached per
+shape. The W8A8 kernel reads its int8 weight K-major: a (C, N)
+``kernel_i8`` must be the transposed view of (N, C) storage, which
+``ops.quant.quantize_kernel_int8`` returns and ``QuantLinear`` keeps.
 """
 
 from __future__ import annotations
@@ -238,21 +241,106 @@ def ln_linear_supported(x, w, *, geglu: bool = False) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def ln_linear_i8_torch(x, gamma, beta, w_i8, w_scale, b=None, *,
-                       eps: float = 1e-5, geglu: bool = False):
-    """Plain version of the W8A8 kernel (the Pallas kernel's math): fp32
-    LayerNorm; per-row scale ``rs = max(row absmax, 1e-8) / 127``; codes
-    ``clip(round(xn * (1 / rs)), -127, 127)``; an exact integer product
-    with the int8 weight (float64: the sums stay below 2^53); then
-    ``acc * rs * w_scale + b`` in fp32, and value * gelu(gate) for
-    ``geglu``."""
+I8_BM, I8_BK = 128, 128      # rows a tile; K bytes a chunk (128-byte rows)
+# B rows a ring stage (value + gate for GEGLU) csrc/ln_linear_i8.cu is
+# built for; a tile's output columns are BN, or BN / 2 for GEGLU
+I8_TILES = (128, 256)
+# TOP/s of each (BN, geglu) tile in a CUDA graph at the variant path's
+# full-width shapes, read on an H100 80GB HBM3 at 700 W by
+# scripts/torch_ln_tiles.py --i8: the plan's cost model
+I8_TILE_TOPS = {(128, False): 528, (256, False): 570, (128, True): 619,
+                (256, True): 638}
+I8_MAX_C = 2048              # the pre-pass holds a row in registers
+
+
+class LnLinearI8Plan(NamedTuple):
+    bn: int                 # W rows a ring stage: the instance
+    geglu: bool
+    vw: int                 # output columns a tile
+    m_tiles: int            # 128-row blocks
+    n_tiles: int            # vw-column tiles a row block
+    tiles: int              # m_tiles * n_tiles, column tiles fastest
+    grid: int               # persistent blocks, each a contiguous range
+    kc: int                 # 128-deep K chunks
+    a_map: TensorMap        # codes (M, C) int8: box (128, 128)
+    w_map: TensorMap        # W storage (G * N, C) int8: box (128, BN / G)
+    c_plan: ctypes.Array    # all of the above as the C entry point reads it
+
+
+def _i8_tile_plan(m, c, n, geglu, bn, sms) -> LnLinearI8Plan:
+    g = 2 if geglu else 1
+    vw = bn // g
+    m_tiles, n_tiles = _cdiv(m, I8_BM), _cdiv(n, vw)
+    tiles = m_tiles * n_tiles
+    grid = min(tiles, sms)
+    a_map = TensorMap((c, m), (c,), (I8_BK, I8_BM), 128, 1)
+    w_map = TensorMap((c, g * n), (c,), (I8_BK, bn // g), 128, 1)
+    kc = _cdiv(c, I8_BK)
+    fields = (bn, int(geglu), m_tiles, n_tiles, tiles, grid, n, kc)
+    return LnLinearI8Plan(bn, geglu, vw, m_tiles, n_tiles, tiles, grid, kc,
+                          a_map, w_map, _c_plan(fields, (a_map, w_map)))
+
+
+def _i8_cost(plan: LnLinearI8Plan) -> float:
+    """Time of the busiest block: its tiles, each 128 x bn x C at its
+    tile's measured rate."""
+    return (_cdiv(plan.tiles, plan.grid) * plan.bn
+            / I8_TILE_TOPS[plan.bn, plan.geglu])
+
+
+@functools.lru_cache(maxsize=1024)
+def ln_linear_i8_plan(m: int, c: int, n: int, geglu: bool = False,
+                      tile=None, sms: int = SMS) -> LnLinearI8Plan:
+    """Launch geometry of the W8A8 kernel for x (m, c) and W (c, n) or, for
+    ``geglu``, (c, 2n) [value | gate], stored (G n, c): n is the output
+    width. The BN is ``tile`` or, of ``I8_TILES``, the one of least
+    ``_i8_cost`` on ``sms`` SMs (then fewer tiles). Raises on what the
+    kernel cannot take: C not a multiple of 64 or above ``I8_MAX_C`` (the
+    pre-pass's row in registers), N not a multiple of 8 (16-byte output
+    stores), or a coordinate past TMA's or int32's range."""
+    if (m < 1 or c < 64 or c % 64 or c > I8_MAX_C or n < 8 or n % 8):
+        raise ValueError(f"ln_linear_i8 kernel needs M >= 1, C % 64 == 0 "
+                         f"up to {I8_MAX_C} and N % 8 == 0, got M={m}, "
+                         f"C={c}, N={n}")
+    if tile is not None:
+        if tile not in I8_TILES:
+            raise ValueError(f"ln_linear_i8 kernel: no BN {tile} in "
+                             f"{I8_TILES}")
+        plan = _i8_tile_plan(m, c, n, geglu, tile, sms)
+    else:
+        plan = min((_i8_tile_plan(m, c, n, geglu, bn, sms)
+                    for bn in I8_TILES),
+                   key=lambda p: (_i8_cost(p), p.tiles))
+    if (max(plan.tiles, m, plan.w_map.dims[1]) > INT32_MAX
+            or max(plan.a_map.dims + plan.w_map.dims) >= _TMA_DIM
+            or max(plan.a_map.strides + plan.w_map.strides) >= _TMA_STRIDE):
+        raise ValueError(f"ln_linear_i8 kernel: x ({m}, {c}) -> {n} "
+                         f"overflows its int32 tile or TMA coordinates")
+    return plan
+
+
+def ln_quant_i8_torch(x, gamma, beta, eps: float = 1e-5):
+    """The activation quantization of ``ln_linear_i8_torch``: fp32
+    LayerNorm, per-row scale ``rs = max(row absmax, 1e-8) / 127`` and codes
+    ``clip(round(xn * (1 / rs)), -127, 127)`` (fp32 values). Returns
+    (codes, rs) of shapes (..., C) and (..., 1)."""
     xf = x.float()
     mean = xf.mean(-1, keepdim=True)
     mean2 = xf.square().mean(-1, keepdim=True)
     var = (mean2 - mean.square()).clamp_min(0.0)
     xn = (xf - mean) * torch.rsqrt(var + eps) * gamma.float() + beta.float()
     rs = xn.abs().amax(-1, keepdim=True).clamp_min(1e-8) / 127.0
-    q = torch.round(xn * (1.0 / rs)).clamp_(-127.0, 127.0)
+    return torch.round(xn * (1.0 / rs)).clamp_(-127.0, 127.0), rs
+
+
+def ln_linear_i8_torch(x, gamma, beta, w_i8, w_scale, b=None, *,
+                       eps: float = 1e-5, geglu: bool = False):
+    """Plain version of the W8A8 kernel (the Pallas kernel's math):
+    ``ln_quant_i8_torch``'s codes and row scales; an exact integer product
+    with the int8 weight (float64: the sums stay below 2^53); then
+    ``acc * rs * w_scale + b`` in fp32, and value * gelu(gate) for
+    ``geglu``."""
+    q, rs = ln_quant_i8_torch(x, gamma, beta, eps)
     acc = torch.matmul(q.double(), w_i8.double()).float()
     y = acc * rs * w_scale.float()
     if b is not None:
@@ -263,40 +351,85 @@ def ln_linear_i8_torch(x, gamma, beta, w_i8, w_scale, b=None, *,
     return y.to(x.dtype)
 
 
+def _check_i8_layout(w_i8):
+    """The kernel reads W K-major: a (C, N) int8 ``kernel_i8`` must be the
+    view of (N, C) storage (the layout ``ops.quant.quantize_kernel_int8``
+    returns and ``QuantLinear`` keeps); any other layout is refused rather
+    than copied."""
+    if w_i8.dtype == torch.int8 and not w_i8.t().is_contiguous():
+        raise ValueError(f"ln_linear_i8: w_i8 {tuple(w_i8.shape)} with "
+                         f"strides {w_i8.stride()} is not the (C, N) view of "
+                         f"(N, C) storage (quantize_kernel_int8's layout)")
+
+
 def ln_linear_i8(x, gamma, beta, w_i8, w_scale, b=None, *,
-                 eps: float = 1e-5, geglu: bool = False):
+                 eps: float = 1e-5, geglu: bool = False, tile=None):
     """Kernel version of ``ln_linear_i8_torch``: x (..., C) bf16;
-    gamma/beta (C,) fp32; w_i8 (C, N) or (C, 2N) int8; w_scale and b
-    (N,) or (2N,) fp32 (b may be None). Returns (..., N) bf16."""
+    gamma/beta (C,) fp32; w_i8 (C, N) or (C, 2N) int8, the transposed view
+    of (N, C) storage; w_scale (N,) or (2N,) fp32; b the same shape, bf16 or
+    fp32 (the kernel widens it), or None. Returns (..., N) bf16. ``tile``
+    forces the plan's BN, as scripts/torch_ln_tiles.py --i8 does."""
     c = x.shape[-1]
     m = x.numel() // c
     n_out = w_i8.shape[1] // (2 if geglu else 1)
-    if (w_i8.shape[0] != c or tuple(w_scale.shape) != (w_i8.shape[1],)
+    if (w_i8.dim() != 2 or w_i8.shape[0] != c
+            or w_i8.shape[1] != (2 if geglu else 1) * n_out
+            or tuple(w_scale.shape) != (w_i8.shape[1],)
             or (b is not None and tuple(b.shape) != (w_i8.shape[1],))):
         raise ValueError(f"ln_linear_i8: x {tuple(x.shape)}, w_i8 "
                          f"{tuple(w_i8.shape)}, w_scale "
                          f"{tuple(w_scale.shape)}, b "
                          f"{None if b is None else tuple(b.shape)}")
-    if c % 64 or n_out % _LANE:
-        raise ValueError(f"ln_linear_i8 kernel needs C % 64 == 0 and "
-                         f"N % 128 == 0, got C={c}, N={n_out}")
-    out = torch.empty(*x.shape[:-1], n_out, dtype=x.dtype, device=x.device)
     dev = x.device
-    bias = None if b is None else b.float()
-    _build.call("idm_ln_linear_i8",
-                _build.ptr(x, "x", torch.bfloat16),
-                _build.ptr(gamma, "gamma", torch.float32, dev),
-                _build.ptr(beta, "beta", torch.float32, dev),
-                _build.ptr(w_i8, "w_i8", torch.int8, dev),
-                _build.ptr(w_scale, "w_scale", torch.float32, dev),
-                _build.ptr(bias, "b", torch.float32, dev),
-                _build.ptr(out, "out", torch.bfloat16),
-                m, c, n_out, int(geglu), float(eps), _build.stream_ptr(dev))
+    x_ptr = _build.ptr(x, "x", torch.bfloat16)
+    _check_i8_layout(w_i8)
+    bias_bf16 = b is not None and b.dtype == torch.bfloat16
+    ptrs = (_build.ptr(gamma, "gamma", torch.float32, dev),
+            _build.ptr(beta, "beta", torch.float32, dev),
+            _build.ptr(w_i8.t(), "w_i8", torch.int8, dev),
+            _build.ptr(w_scale, "w_scale", torch.float32, dev),
+            _build.ptr(b, "b", torch.bfloat16 if bias_bf16 else torch.float32,
+                       dev))
+    out = torch.empty(*x.shape[:-1], n_out, dtype=x.dtype, device=dev)
+    if m == 0:
+        return out
+    plan = ln_linear_i8_plan(m, c, n_out, bool(geglu), tile,
+                             sms=_sm_count(dev.index))
+    # the kernel's pre-pass writes the codes and row scales here
+    codes = torch.empty(m, c, dtype=torch.int8, device=dev)
+    rs = torch.empty(m, dtype=torch.float32, device=dev)
+    _build.call("idm_ln_linear_i8", x_ptr, *ptrs, int(bias_bf16),
+                _build.ptr(codes, "codes", torch.int8),
+                _build.ptr(rs, "rs", torch.float32),
+                _build.ptr(out, "out", torch.bfloat16), m, c, n_out,
+                float(eps), plan.c_plan, _build.stream_ptr(dev))
     ln_linear_i8.launches += 1
     return out
 
 
 ln_linear_i8.launches = 0
+
+
+def ln_quant_i8(x, gamma, beta, eps: float = 1e-5):
+    """The W8A8 kernel's quantization pre-pass alone (a debug entry, not
+    counted as a launch): x (..., C) bf16 -> (codes (M, C) int8, rs (M,)
+    fp32), which the tests hold against ``ln_quant_i8_torch``."""
+    c = x.shape[-1]
+    m = x.numel() // c
+    if c % 8 or c > I8_MAX_C:
+        raise ValueError(f"ln_quant_i8 kernel needs C % 8 == 0 up to "
+                         f"{I8_MAX_C}, got C={c}")
+    dev = x.device
+    x_ptr = _build.ptr(x, "x", torch.bfloat16)
+    codes = torch.empty(m, c, dtype=torch.int8, device=dev)
+    rs = torch.empty(m, dtype=torch.float32, device=dev)
+    _build.call("idm_ln_quant_i8", x_ptr,
+                _build.ptr(gamma, "gamma", torch.float32, dev),
+                _build.ptr(beta, "beta", torch.float32, dev),
+                _build.ptr(codes, "codes", torch.int8),
+                _build.ptr(rs, "rs", torch.float32), m, c, float(eps),
+                _build.stream_ptr(dev))
+    return codes, rs
 
 
 # ---------------------------------------------------------------------------

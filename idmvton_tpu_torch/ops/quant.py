@@ -17,13 +17,18 @@ def quantize_kernel_int8(w: torch.Tensor):
     """(C, N) weight -> (int8 codes (C, N), fp32 scales (N,)) with the JAX
     package's arithmetic: in fp32, ``scale = max(absmax over C, 1e-8) /
     127`` and ``codes = clip(round(w / scale), -127, 127)`` (a true
-    division; ``torch.round`` rounds half to even, as ``jnp.round``)."""
+    division; ``torch.round`` rounds half to even, as ``jnp.round``). The
+    codes are the (C, N) view of (N, C) storage: the W8A8 kernel reads the
+    weight K-major (``csrc/ln_linear_i8.cu``)."""
     w = w.detach().float()
     scale = w.abs().amax(0).clamp_min(1e-8) / 127.0
-    return torch.round(w / scale[None]).clamp_(-127, 127).to(torch.int8), \
+    codes = torch.round(w / scale[None]).clamp_(-127, 127)
+    return codes.t().to(torch.int8, memory_format=torch.contiguous_format).t(), \
         scale
 
 
 def dequantize_kernel_int8(w_i8, w_scale, dtype):
-    """(C, N) int8 codes times their (N,) fp32 scales, cast to ``dtype``."""
-    return (w_i8.float() * w_scale.float()[None]).to(dtype)
+    """(C, N) int8 codes times their (N,) fp32 scales, cast to ``dtype``
+    (a contiguous (C, N) tensor, whatever the codes' storage)."""
+    out = torch.empty(w_i8.shape, dtype=dtype, device=w_i8.device)
+    return torch.mul(w_i8.float(), w_scale.float()[None], out=out)

@@ -3,8 +3,9 @@
 of the serving and tiny paths, on one NVIDIA card.
 
 Run from the root of a checkout: ``python3 scripts/torch_attention_tiles.py``
-(``--quick``: the plan's tile only, on the port's own build). It needs one
-CUDA card and nvcc, and imports nothing of JAX.
+(``--quick``: the plan's tile only, on the port's own build; ``--cross``:
+the small-KV cross-attention kernel instead, below). It needs one CUDA card
+and nvcc, and imports nothing of JAX.
 
 The kernel's ring depth and turn-taking are constants of
 ``csrc/flash_attention.cuh``; this script builds the kernel library once for
@@ -25,6 +26,17 @@ captured in a CUDA graph and replayed 3 times: the device alone, without
 the host's pace between launches). The tile the plan picks in the port's
 build (3 stages, turns on) is marked. These readings are the basis of
 ``cuda_attention.BKV`` and ``WGS_TFLOPS`` and of the header's constants.
+
+``--cross`` times ``cross_attention_small_kv`` (``csrc/
+cross_attention_small_kv.cu``, one tile: 128 queries, a 128-column head
+group) at the variant path's four shapes in builds of 2, 3 and 4 ring
+stages (``-DIDM_CROSS_STAGES``; ``--quick``: the port's 3): max |err| over
+max |plain|, ms, graph ms, GB/s of its bytes and host µs a call, beside
+the bound (its bytes over the memory rate) and the two-call yardstick,
+``F.scaled_dot_product_attention`` of each branch on head-major copies
+summed in fp32 (``--probe``: ``CROSS_PROBES``, measurement builds that
+skip the IP branch, the stores or the softmax). Its readings are the
+header's ``IDM_CROSS_STAGES``.
 """
 
 from __future__ import annotations
@@ -58,6 +70,116 @@ PORT = (3, True)
 # the (DP, BKV, consumer warpgroups) that -DIDM_ATTN_SWEEP adds to
 # cuda_attention.INSTANCES (flash_attention.cuh::dispatch)
 SWEEP_INSTANCES = frozenset([(16, 64, 2), (64, 64, 2), (64, 64, 3)])
+# --cross: (B, N, heads, IP branch) of the variant path's cross-attention
+# (64-wide heads, 77 text + 16 IP tokens), the ring depths built and the
+# port's (csrc/cross_attention_small_kv.cu's IDM_CROSS_STAGES)
+CROSS_SHAPES = [(4, 3072, 10, True), (4, 768, 20, True), (2, 3072, 10, False),
+                (2, 768, 20, False)]
+CROSS_STAGES = (2, 3, 4)
+CROSS_PORT = 3
+# --cross --probe: measurement builds of the port's ring that skip the IP
+# branch, the output stores or the softmax (-DIDM_CROSS_PROBE); their
+# results are wrong and not checked
+CROSS_PROBES = {"no IP": ("-DIDM_CROSS_PROBE=1",),
+                "no stores": ("-DIDM_CROSS_PROBE=2",),
+                "no softmax": ("-DIDM_CROSS_PROBE=4",),
+                "none of the three": ("-DIDM_CROSS_PROBE=7",)}
+
+
+def host_us(fn, calls: int = 50) -> float:
+    """Host microseconds a call: ``calls`` enqueues, no sync."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def cross_sweep(args, card):
+    """The --cross readings: each ring depth's build at each path shape."""
+    import torch
+    import torch.nn.functional as F
+    from idmvton_tpu_torch.ops import _build
+    from idmvton_tpu_torch.ops import cuda_attention as A
+    stages = [CROSS_PORT] if args.quick else list(CROSS_STAGES)
+    builds = {s: () if s == CROSS_PORT else (f"-DIDM_CROSS_STAGES={s}",)
+              for s in stages}
+    probes = CROSS_PROBES if args.probe else {}
+    builds.update({f"probe {p}": d for p, d in probes.items()})
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(builds)) as pool:
+        list(pool.map(lambda d: _build.build(defines=d), builds.values()))
+    smoke.log(f"{len(builds)} builds in {time.perf_counter() - t0:.1f} s")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(smoke.SEED)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    rows = []
+    with torch.inference_mode():
+        for b, n, heads, ip in CROSS_SHAPES:
+            hd = heads * 64
+            q, kv = rn(b, n, hd), rn(b, 77, 2 * hd)
+            kv_ip = rn(b, 16, 2 * hd) if ip else None
+
+            def major(t, i):
+                return (t[..., i * hd:(i + 1) * hd]
+                        .reshape(b, t.shape[1], heads, 64).transpose(1, 2)
+                        .contiguous())
+
+            qt, kt, vt = (q.reshape(b, n, heads, 64).transpose(1, 2)
+                          .contiguous(), major(kv, 0), major(kv, 1))
+            if ip:
+                kit, vit = major(kv_ip, 0), major(kv_ip, 1)
+
+                def two():
+                    return (F.scaled_dot_product_attention(qt, kt, vt).float()
+                            + F.scaled_dot_product_attention(qt, kit,
+                                                             vit).float())
+            else:
+                def two():
+                    return F.scaled_dot_product_attention(qt, kt, vt)
+
+            def kern():
+                return A.cross_attention_small_kv(q, kv, kv_ip, heads=heads)
+
+            label = f"q{(b, n, hd)} heads {heads}{' + IP' if ip else ''}"
+            want = A.cross_attention_small_kv_torch(q, kv, kv_ip, heads=heads)
+            nbytes = smoke.nbytes(q, kv, kv_ip, want)
+            bound = 1e3 * nbytes / smoke.HBM_BPS
+            lib, lib_graph = smoke.cuda_time_ms(two), smoke.graph_ms(two)
+            _build.DEFINES = builds[CROSS_PORT]
+            smoke.log(f"{label}: sdpa_sum {lib:.4f} ms (graph "
+                      f"{lib_graph:.4f}, host {host_us(two):.1f} us), bound "
+                      f"{bound:.4f} ms; kernel host us a call "
+                      f"{host_us(kern):.1f}")
+            for st in stages:
+                _build.DEFINES = builds[st]
+                _, err = smoke.errors(kern(), want)
+                ms, gms = smoke.cuda_time_ms(kern), smoke.graph_ms(kern)
+                mark = " <- port" if st == CROSS_PORT else ""
+                smoke.log(f"  stages {st}: rel err {err:.2e}, {ms:.4f} ms, "
+                          f"graph {gms:.4f} ms, {nbytes / gms / 1e6:.0f} "
+                          f"GB/s{mark}")
+                rows.append(dict(kernel="cross_attention_small_kv",
+                                 shape=label, stages=st, ms=ms, graph_ms=gms,
+                                 rel_err=err, bound_ms=bound,
+                                 library_ms=lib, library_graph_ms=lib_graph))
+            for p in probes:
+                _build.DEFINES = builds[f"probe {p}"]
+                gms = smoke.graph_ms(kern)
+                smoke.log(f"  probe {p}: graph {gms:.4f} ms")
+                rows.append(dict(kernel="cross_attention_small_kv",
+                                 shape=label, probe=p, graph_ms=gms))
+            _build.DEFINES = ()
+            del q, kv, kv_ip, want
+            torch.cuda.empty_cache()
+    print(json.dumps({"card": card, "rows": rows}), flush=True)
 
 
 def defines(stages, pingpong):
@@ -158,6 +280,10 @@ def main():
     ap.add_argument("--quick", action="store_true",
                     help="time only the tile the plan picks, on the port's "
                          "own build")
+    ap.add_argument("--cross", action="store_true",
+                    help="sweep the small-KV cross-attention kernel instead")
+    ap.add_argument("--probe", action="store_true",
+                    help="--cross: also time the CROSS_PROBES builds")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         smoke.fail("torch.cuda.is_available() is false: this script needs "
@@ -169,6 +295,8 @@ def main():
                           "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     smoke.log(smi.stdout.strip())
+    if args.cross:
+        return cross_sweep(args, smi.stdout.strip())
     variants = [PORT] if args.quick else VARIANTS
     builds = {v: () if args.quick else defines(*v) for v in variants}
     t0 = time.perf_counter()

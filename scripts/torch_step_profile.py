@@ -41,8 +41,11 @@ import chip_smoke as smoke  # noqa: E402
 from torch_tiny_step_probe import OUT, profile_step  # noqa: E402
 
 # (group, substrings of the kernel name), the first match wins
-GROUPS = (("ln_linear_i8 GEGLU", ("ln_linear_i8_kernel<true",)),
+GROUPS = (("ln_linear_i8 GEGLU", ("ln_linear_i8_kernel<true",
+                                   "ln_linear_i8_kernel<128, true",
+                                   "ln_linear_i8_kernel<256, true")),
           ("ln_linear_i8", ("ln_linear_i8_kernel",)),
+          ("ln_linear_i8 quantization pre-pass", ("ln_quant_kernel",)),
           ("ln_linear GEGLU", ("ln_linear_kernel<true",
                                "ln_linear_kernel<128, true",
                                "ln_linear_kernel<256, true")),

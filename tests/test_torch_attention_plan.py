@@ -106,13 +106,14 @@ def decode(plan, blk, b):
 
 def c_plan_fields(plan):
     """The plan as flash_attention.cuh's Plan reads it back: its fields,
-    then each map's (dims, strides, box, swizzle) or None."""
+    then each map's (dims, strides, box, swizzle, element size) or None."""
     c = list(plan.c_plan)
     maps = []
-    for i in range(13, 73, 12):
-        dims, strides, box, sw = (tuple(c[i:i + 4]), tuple(c[i + 4:i + 7]),
-                                  tuple(c[i + 7:i + 11]), c[i + 11])
-        maps.append((dims, strides, box, sw) if dims[0] else None)
+    for i in range(13, 78, 13):
+        dims, strides, box, sw, elem = (
+            tuple(c[i:i + 4]), tuple(c[i + 4:i + 7]), tuple(c[i + 7:i + 11]),
+            c[i + 11], c[i + 12])
+        maps.append((dims, strides, box, sw, elem) if dims[0] else None)
     return tuple(c[:8]), tuple(c[8:13]), maps
 
 

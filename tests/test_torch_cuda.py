@@ -32,6 +32,7 @@ import pytest
 import torch
 
 from idmvton_tpu_torch.ops import cuda_attention, cuda_conv, cuda_norm
+from idmvton_tpu_torch.ops.quant import quantize_kernel_int8
 
 pytestmark = pytest.mark.cuda
 BF16_TOL = 2e-2
@@ -386,7 +387,12 @@ def test_flash_attention_tiny_path_shapes(dev, b, sq, heads, d, m, scale):
 @pytest.mark.parametrize("m,c,n,geglu,bias", [
     (200, 128, 128, False, False), (77, 256, 128, True, False),
     (130, 640, 128, True, True), (65, 1280, 128, False, True),
-    (3, 1280, 256, True, False)])
+    (3, 1280, 256, True, False),
+    # M off the 128-row tile, C = 128 (one K chunk), GEGLU at both path
+    # widths, an fp32 bias
+    (300, 128, 384, False, "fp32"), (129, 1280, 1280, False, True),
+    (257, 640, 2560, True, True), (131, 1280, 5120, True, "fp32"),
+    (12, 640, 1920, False, False)])
 def test_ln_linear_i8_kernel(dev, m, c, n, geglu, bias):
     from idmvton_tpu_torch.models.attention import _ln_proj
     from idmvton_tpu_torch.models.layers import (
@@ -396,18 +402,21 @@ def test_ln_linear_i8_kernel(dev, m, c, n, geglu, bias):
     x = _randn(g, 2, m, c, dev=dev, scale=3.0) + 1.0
     gamma = _randn(g, c, dev=dev, dtype=torch.float32) * 0.2 + 1.0
     beta = _randn(g, c, dev=dev, dtype=torch.float32) * 0.1
-    lin = Linear(c, (2 if geglu else 1) * n, bias=bias, dtype=torch.bfloat16,
-                 device=dev)
+    lin = Linear(c, (2 if geglu else 1) * n, bias=bool(bias),
+                 dtype=torch.bfloat16, device=dev)
     lin.kernel.copy_(_randn(g, *lin.kernel.shape, dev=dev, scale=c ** -0.5))
     if bias:
         lin.bias.copy_(_randn(g, *lin.bias.shape, dev=dev))
     q = quantize_linear_int8(lin)
+    assert q.kernel_i8.t().is_contiguous()    # the kernel's K-major W
     norm = Norm(c, device=dev)
     norm.scale.copy_(gamma)
     norm.bias.copy_(beta)
+    # the sites pass the module's bf16 bias; an fp32 one is widened alike
+    b = q.bias.float() if bias == "fp32" else q.bias
     before = cuda_norm.ln_linear_i8.launches
     got = cuda_norm.ln_linear_i8(x, gamma, beta, q.kernel_i8, q.kernel_scale,
-                                 q.bias, geglu=geglu)
+                                 b, geglu=geglu)
     # a fused LN site dispatches the int8 projection to the same kernel
     got2 = _ln_proj(x, norm, q, geglu=geglu, impl="cuda")
     want = cuda_norm.ln_linear_i8_torch(x, gamma, beta, q.kernel_i8,
@@ -419,9 +428,83 @@ def test_ln_linear_i8_kernel(dev, m, c, n, geglu, bias):
     assert _rel_err(got, want) <= BF16_TOL
 
 
+@pytest.mark.parametrize("tile", cuda_norm.I8_TILES)
+@pytest.mark.parametrize("geglu", [False, True])
+@pytest.mark.parametrize("c,n", [(640, 320), (192, 200)])
+def test_ln_linear_i8_every_tile(dev, tile, geglu, c, n):
+    """Each BN instance (forced through the plan) at ragged shapes: column
+    tiles past N, C % 128 == 64 (a half-filled last K chunk)."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    m = 333
+    x = _randn(g, m, c, dev=dev, scale=2.0)
+    gamma = _randn(g, c, dev=dev, dtype=torch.float32) * 0.2 + 1.0
+    beta = _randn(g, c, dev=dev, dtype=torch.float32) * 0.1
+    w_i8, w_scale = quantize_kernel_int8(
+        _randn(g, c, (2 if geglu else 1) * n, dev=dev, scale=c ** -0.5))
+    b = _randn(g, w_i8.shape[1], dev=dev)
+    got = cuda_norm.ln_linear_i8(x, gamma, beta, w_i8, w_scale, b,
+                                 geglu=geglu, tile=tile)
+    want = cuda_norm.ln_linear_i8_torch(x, gamma, beta, w_i8, w_scale, b,
+                                        geglu=geglu)
+    assert _rel_err(got, want) <= BF16_TOL
+
+
+@pytest.mark.parametrize("m,c", [(3, 128), (200, 640), (129, 1280),
+                                 (4 * 768, 1280), (77, 2048), (50, 192)])
+def test_ln_quant_i8_codes_equal_plain(dev, m, c):
+    """The kernel's quantization pre-pass against the plain version's codes
+    and row scales, exactly. The two sum a row's statistics in different
+    orders; x on a grid of small integers makes every order exact, so the
+    rest of the arithmetic -- the means, the variance, rsqrt, the
+    normalization, the absmax, rs and 1/rs, the rounding -- must agree bit
+    for bit. On Gaussian x the codes are compared by count: an fp32
+    statistics rounding may move a code by one, rarely."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randint(-12, 13, (m, c), generator=g, device=dev).bfloat16()
+    gamma = _randn(g, c, dev=dev, dtype=torch.float32) * 0.2 + 1.0
+    beta = _randn(g, c, dev=dev, dtype=torch.float32) * 0.1
+    codes, rs = cuda_norm.ln_quant_i8(x, gamma, beta)
+    want_q, want_rs = cuda_norm.ln_quant_i8_torch(x, gamma, beta)
+    assert codes.dtype == torch.int8 and codes.shape == (m, c)
+    assert torch.equal(codes.float(), want_q)
+    assert torch.equal(rs, want_rs.reshape(m))
+    xg = _randn(g, m, c, dev=dev, scale=2.0) + 0.5
+    codes, rs = cuda_norm.ln_quant_i8(xg, gamma, beta)
+    want_q, want_rs = cuda_norm.ln_quant_i8_torch(xg, gamma, beta)
+    diff = (codes.float() - want_q).abs()
+    assert float(diff.max()) <= 1 and float(diff.mean()) <= 1e-3
+    assert _rel_err(rs, want_rs.reshape(m)) <= 1e-5
+
+
+def test_ln_linear_i8_refuses_other_weight_layouts(dev):
+    """The kernel reads W K-major: a (C, N) kernel_i8 must be the view of
+    (N, C) storage; a row-major one is refused, not copied."""
+    x = torch.zeros(4, 128, dtype=torch.bfloat16, device=dev)
+    g = torch.ones(128, device=dev)
+    w_i8 = torch.zeros(128, 256, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="storage"):
+        cuda_norm.ln_linear_i8(x, g, g, w_i8, torch.ones(256, device=dev))
+    cuda_norm.ln_linear_i8(x, g, g, w_i8.t().contiguous().t(),
+                           torch.ones(256, device=dev))
+
+
+def test_quant_layout_survives_module_to_cuda(dev):
+    """QuantLinear's (N, C) storage survives Module.to onto the card."""
+    from idmvton_tpu_torch.models.layers import Linear, quantize_linear_int8
+    lin = Linear(128, 384, dtype=torch.bfloat16, device="cpu")
+    lin.kernel.copy_(torch.randn(128, 384))
+    q = quantize_linear_int8(lin).to(dev)
+    assert q.kernel_i8.is_cuda and q.kernel_i8.shape == (128, 384)
+    assert q.kernel_i8.t().is_contiguous()
+
+
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
-@pytest.mark.parametrize("s_text,s_ip", [(77, 16), (8, 0), (300, 90)])
+@pytest.mark.parametrize("s_text,s_ip", [(77, 16), (8, 0), (300, 90),
+                                         (1024, 16), (80, 17), (81, 1)])
 def test_cross_attention_small_kv_kernel(dev, d, s_text, s_ip):
+    """Every head dim, one-chunk and multi-chunk contexts of both branches
+    (80 text / 16 IP key rows a chunk), no IP branch, 200 queries (a
+    ragged 128-row tile)."""
     g = torch.Generator(device=dev).manual_seed(6)
     b, n, heads = 2, 200, 256 // d
     q = _randn(g, b, n, heads * d, dev=dev, scale=2.0)
@@ -436,6 +519,25 @@ def test_cross_attention_small_kv_kernel(dev, d, s_text, s_ip):
     torch.cuda.synchronize()
     assert got.shape == (b, n, heads * d)
     assert cuda_attention.cross_attention_small_kv.launches == before + 1
+    assert _rel_err(got, want) <= BF16_TOL
+
+
+@pytest.mark.parametrize("b,n,heads,ip", [(4, 3072, 10, True),
+                                          (4, 768, 20, True),
+                                          (2, 3072, 10, False),
+                                          (2, 768, 20, False)])
+def test_cross_attention_small_kv_path_shapes(dev, b, n, heads, ip):
+    """The variant path's shapes: 77 text + 16 IP tokens (TryonNet), 77
+    text (GarmentNet), 64-wide heads; more blocks' tiles than SMs, so the
+    persistent blocks cross head groups."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    hd = heads * 64
+    q = _randn(g, b, n, hd, dev=dev)
+    kv = _randn(g, b, 77, 2 * hd, dev=dev)
+    kv_ip = _randn(g, b, 16, 2 * hd, dev=dev) if ip else None
+    got = cuda_attention.cross_attention_small_kv(q, kv, kv_ip, heads=heads)
+    want = cuda_attention.cross_attention_small_kv_torch(q, kv, kv_ip,
+                                                         heads=heads)
     assert _rel_err(got, want) <= BF16_TOL
 
 

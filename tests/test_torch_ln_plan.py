@@ -95,13 +95,13 @@ def check_plan(plan, m, c, n, geglu, sms=132):
         assert all(s % 16 == 0 for s in tmap.strides)
     # the int64 array the C entry point reads, field for field
     vals = list(plan.c_plan)
-    assert len(vals) == 20
+    assert len(vals) == 22
     assert vals[:8] == [plan.bn, int(geglu), plan.m_tiles, plan.n_tiles,
                         plan.tiles, plan.grid, n, plan.kc]
-    assert vals[8:14] == [*plan.x_map.dims, *plan.x_map.strides,
-                          *plan.x_map.box, 128]
-    assert vals[14:] == [*plan.w_map.dims, *plan.w_map.strides,
-                         *plan.w_map.box, 128]
+    assert vals[8:15] == [*plan.x_map.dims, *plan.x_map.strides,
+                          *plan.x_map.box, 128, 2]
+    assert vals[15:] == [*plan.w_map.dims, *plan.w_map.strides,
+                         *plan.w_map.box, 128, 2]
 
 
 @pytest.mark.parametrize("shape", PATH)

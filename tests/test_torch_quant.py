@@ -33,6 +33,9 @@ from idmvton_tpu_torch.models.layers import (
 )
 from idmvton_tpu_torch.models.unet import UNet
 from idmvton_tpu_torch.ops import cuda_norm
+from idmvton_tpu_torch.ops.quant import (
+    dequantize_kernel_int8, quantize_kernel_int8,
+)
 from idmvton_tpu_torch.weights.from_jax import load_module_params
 
 TOL = 2e-4
@@ -234,3 +237,132 @@ def test_ln_linear_dispatches_quantized_projections():
                              "bias": jnp.asarray(beta)},
             jquant.quantize_linear_int8(proj), geglu=True)
         _close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the int8 weight layout: (C, N) codes stored (N, C), K-major for the W8A8
+# kernel (csrc/ln_linear_i8.cu), with the JAX layout, keys and bits
+# ---------------------------------------------------------------------------
+
+
+def _k_major(t):
+    return t.dtype == torch.int8 and t.dim() == 2 and t.t().is_contiguous()
+
+
+@pytest.mark.parametrize("shape", [(96, 200), (640, 1920), (128, 8)])
+def test_quantize_kernel_int8_layout_and_bits(shape):
+    """The codes are the (C, N) view of (N, C) storage and still equal
+    JAX's quantize_linear_int8 bit for bit, scales too."""
+    w = _np(30, *shape, scale=0.2)
+    want = jquant.quantize_linear_int8({"kernel": jnp.asarray(w)})
+    codes, scale = quantize_kernel_int8(torch.from_numpy(w))
+    assert codes.shape == shape and _k_major(codes)
+    assert codes.stride() == (1, shape[0])
+    np.testing.assert_array_equal(codes.numpy(),
+                                  np.asarray(want["kernel_i8"]))
+    np.testing.assert_array_equal(scale.numpy(),
+                                  np.asarray(want["kernel_scale"]))
+    # the dequantized weight is a contiguous (C, N) tensor, as before
+    dq = dequantize_kernel_int8(codes, scale, torch.float32)
+    assert dq.is_contiguous()
+    _close(dq, pallas_norm.dequantize_int8(want, jnp.float32)["kernel"],
+           tol=0)
+
+
+def test_int8_layout_survives_to_quantize_and_load(quantized_unets):
+    """quantize_unet_linears_int8 leaves every site K-major; so do a JAX
+    quantized tree loaded into a quantized UNet (the loader's copy_) and
+    Module.to, with the same (C, N) shapes, keys and values."""
+    mode, attn_qkv, jq, tu = quantized_unets
+    sites = {n: m for n, m in tu.named_modules() if isinstance(m, QuantLinear)}
+    assert sites and all(_k_major(m.kernel_i8) for m in sites.values())
+    loaded = quantize_unet_linears_int8(UNet(tcfg.UNetConfig.tiny(mode),
+                                             **F32), attn_qkv=attn_qkv)
+    load_module_params(loaded, jax.tree.map(np.asarray, jq))
+    want = _flat(jq)
+    for name, m in loaded.named_modules():
+        if isinstance(m, QuantLinear):
+            assert _k_major(m.kernel_i8), name
+            np.testing.assert_array_equal(m.kernel_i8.numpy(),
+                                          want[f"{name}.kernel_i8"])
+    for target in (torch.float64, "meta"):
+        moved = loaded.to(target)
+        assert all(_k_major(m.kernel_i8) for m in moved.modules()
+                   if isinstance(m, QuantLinear))
+
+
+def test_load_jax_params_keeps_the_int8_layout():
+    """load_jax_params of a quantized JAX tiny stack into a quantized port
+    stack: each QuantLinear keeps its (C, N) shape over (N, C) storage and
+    takes JAX's codes."""
+    from idmvton_tpu.pipeline import tryon as jtryon
+    from idmvton_tpu_torch.pipeline import tryon as ttryon
+    from idmvton_tpu_torch.weights.from_jax import load_jax_params
+    jp = jtryon.TryonModels.init(jax.random.PRNGKey(0), tiny=True,
+                                 dtype=jnp.float32).params()
+    jq = dict(jp, unet=jquant.quantize_unet_linears_int8(jp["unet"]),
+              garm=jquant.quantize_unet_linears_int8(jp["garm"],
+                                                     attn_qkv=False))
+    tq = ttryon.TryonModels.init(None, tiny=True, dtype=torch.float32,
+                                 device="cpu")
+    quantize_unet_linears_int8(tq.unet)
+    quantize_unet_linears_int8(tq.garm, attn_qkv=False)
+    load_jax_params(tq, jax.tree.map(np.asarray, jq))
+    for tower in ("unet", "garm"):
+        want = _flat(jq[tower])
+        sites = [(n, m) for n, m in getattr(tq, tower).named_modules()
+                 if isinstance(m, QuantLinear)]
+        assert sites
+        for name, m in sites:
+            assert _k_major(m.kernel_i8), (tower, name)
+            np.testing.assert_array_equal(m.kernel_i8.numpy(),
+                                          want[f"{name}.kernel_i8"])
+
+
+def _ln_linear_i8_pre_change(x, gamma, beta, w_i8, w_scale, b, eps, geglu):
+    """ln_linear_i8_torch's arithmetic as it stood before the weight layout
+    moved to (N, C) storage, on a row-major copy of the codes."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    mean2 = xf.square().mean(-1, keepdim=True)
+    var = (mean2 - mean.square()).clamp_min(0.0)
+    xn = (xf - mean) * torch.rsqrt(var + eps) * gamma.float() + beta.float()
+    rs = xn.abs().amax(-1, keepdim=True).clamp_min(1e-8) / 127.0
+    q = torch.round(xn * (1.0 / rs)).clamp_(-127.0, 127.0)
+    acc = torch.matmul(q.double(), w_i8.contiguous().double()).float()
+    y = acc * rs * w_scale.float()
+    if b is not None:
+        y = y + b.float()
+    if geglu:
+        val, gate = y.chunk(2, dim=-1)
+        y = val * torch.nn.functional.gelu(gate)
+    return y.to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geglu", [False, True])
+def test_plain_path_unchanged_by_the_layout(dtype, geglu):
+    """The plain W8A8 version and the dequantized site path give the same
+    output, bit for bit, as the pre-change arithmetic on row-major codes."""
+    x, gamma, beta, proj = _i8_case(256, 128, geglu, True, seed=40)
+    lin = load_module_params(
+        Linear(256, proj["kernel"].shape[1], dtype=dtype, device="cpu"),
+        jax.tree.map(np.asarray, proj))
+    q = quantize_linear_int8(lin)
+    assert _k_major(q.kernel_i8)
+    tx = _t(x).to(dtype)
+    args = (tx, _t(gamma), _t(beta), q.kernel_i8, q.kernel_scale, q.bias)
+    got = cuda_norm.ln_linear_i8_torch(*args, geglu=geglu)
+    assert torch.equal(got, _ln_linear_i8_pre_change(*args, 1e-5, geglu))
+    # a site the kernel does not take (impl="torch"): the dequantized weight
+    norm = load_module_params(Norm(256, device="cpu"),
+                              {"scale": gamma, "bias": beta})
+    site = tattention._ln_proj(tx, norm, q, geglu=geglu, impl="torch")
+    row_major = Linear(256, proj["kernel"].shape[1], dtype=dtype,
+                       device="cpu")
+    with torch.no_grad():
+        row_major.kernel.copy_((q.kernel_i8.contiguous().float()
+                                * q.kernel_scale[None]).to(dtype))
+        row_major.bias.copy_(q.bias)
+    assert torch.equal(site, tattention._ln_proj(tx, norm, row_major,
+                                                 geglu=geglu, impl="torch"))
