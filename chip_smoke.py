@@ -29,9 +29,19 @@ failure:
    with ``impl="cuda"`` against ``impl="torch"`` on the same inputs, and
    one more with ``IDMVTON_FLASH_FIXED_SHIFT=0`` (the attention kernel's
    online softmax at every site);
+   then the captured step (``pipeline/graph.py``): one step eager
+   (``denoise_step``) against the same step replayed from its CUDA graph,
+   bit for bit (or, if two eager runs differ, within their difference);
+   two requests through ``jit_generate`` against two through eager
+   ``generate`` from generators of one seed, images bit for bit and launch
+   counts equal; the replayed step's wall time against its device time
+   over 5 replays, then 5 eager steps (CUDA events);
 5. serve 2 requests through ``TryonPipeline.stepwise_generate`` at
    768x1024, batch 2, 30 steps, CFG 2.0, garment_cache="every_step", on
-   the full SDXL try-on stack with seeded random weights (the bf16 path);
+   the full SDXL try-on stack with seeded random weights (the bf16 path;
+   on the card ``stepwise_generate``, ``jit_generate`` and the CLI replay
+   every step from the captured step, whose launches count as an eager
+   step's);
    then one fp32 VAE decode (``VAEConfig.force_upcast``) of a full-width
    latent through the conv and GroupNorm statistics kernels, every conv
    site on a kernel, against the bf16 decode;
@@ -138,7 +148,11 @@ PATH_KERNELS = {
     # one VAE conv takes conv3x3_hblock) besides flash_attention
     "tiny": BF16_PATH + ("flash_attention",),
     "decode_fp32": ("conv3x3", "conv3x3_hblock", "gn_spatial_stats"),
+    # two jit_generate requests, every step replayed from the captured step
+    "graph": BF16_PATH,
 }
+# the replayed step's timing (phase 4): steps a reading
+TIMED_STEPS = 5
 
 
 def fail(msg: str):
@@ -867,6 +881,128 @@ def cli_run(args, models, built, wrappers, path, exact=None):
     return counts
 
 
+def bit_check(label, got, want, runs):
+    """Fails unless ``got`` equals ``want`` bit for bit or, where two eager
+    runs (``runs``) differ, by no more than they do."""
+    import torch
+    diff = float((got.float() - want.float()).abs().max())
+    spread = float((runs[0].float() - runs[1].float()).abs().max())
+    log(f"{label}: max |replayed - eager| {diff:.3e}, two eager runs "
+        f"{spread:.3e}, bit-equal {torch.equal(got, want)}")
+    if not (torch.equal(got, want) or (spread > 0 and diff <= spread)):
+        fail(f"{label}: replayed differs from eager by {diff} (two eager "
+             f"runs by {spread})")
+
+
+def check_graph(pipe, inputs, gen, wrappers):
+    """The captured step (phase 4): (a) one full-width step eager against
+    the same step replayed; (b) two requests through ``jit_generate``
+    against two through eager ``generate``, from generators of one seed:
+    the same images and the same launch counts; (c) the replayed step's wall
+    and device time against the eager step's. Returns the jit_generate
+    requests' launch counts."""
+    import numpy as np
+    import torch
+    sched = pipe.scheduler
+    dev = inputs["person"].device
+    cond = pipe.staged_encoder()(gen, inputs)
+    b, h, w, _ = inputs["person"].shape
+    ds = pipe.models.vae_cfg.downscale
+    lat_shape = (b, h // ds, w // ds, pipe.models.vae_cfg.latent_channels)
+    lat = torch.randn(lat_shape, generator=gen, device=dev).to(torch.bfloat16)
+    noise = torch.randn(lat_shape, generator=gen,
+                        device=dev).to(torch.bfloat16)
+    ts, prev_ts = sched.timesteps_and_prev(STEPS)
+    table = torch.from_numpy(sched.step_table(
+        ts, prev_ts, np.concatenate([ts[1:], [-1]]))).to(dev)
+
+    def eager(i=0):
+        return pipe.denoise_step(cond, lat, int(ts[i]), int(prev_ts[i]),
+                                 guidance_scale=GUIDANCE, step_noise=noise)
+
+    # (a) the first step() runs eagerly, then captures; the second replays
+    runs = [eager(), eager()]
+    steps = pipe.step_graph(cond, lat, guidance_scale=GUIDANCE)
+    t0 = time.perf_counter()
+    steps.start(table, lat, cond)
+    steps.step(noise)
+    torch.cuda.synchronize()
+    log(f"graph: first step eager + capture {time.perf_counter() - t0:.3f}"
+        f" s (capture alone {steps.capture_seconds:.3f} s)")
+    bit_check("graph first step (eager, side stream)", steps.lat, runs[0],
+              runs)
+    steps.start(table, lat, cond)
+    steps.step(noise)
+    bit_check("graph replayed step", steps.lat, runs[0], runs)
+
+    # (c) wall against device time, 5 steps each way; the device time of a
+    # step is that of back-to-back replays (nothing waits for the host)
+    def timed(step_fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(TIMED_STEPS):
+            step_fn()
+        end.record()
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t0) * 1e3 / TIMED_STEPS,
+                start.elapsed_time(end) / TIMED_STEPS)
+
+    steps.start(table, lat, cond)
+    r_wall, r_dev = timed(lambda: steps.step(noise))
+    e_wall, e_dev = timed(eager)
+    for mode, wall, span in (("replayed", r_wall, r_dev),
+                             ("eager", e_wall, e_dev)):
+        log(f"graph timing {mode} step: wall {wall:.3f} ms, device span "
+            f"{span:.3f} ms (events), idle share {1 - r_dev / wall:.4f} "
+            f"(1 - replayed device ms / wall ms)")
+    del runs, steps
+    torch.cuda.empty_cache()
+
+    # (b) two requests each way, same seed
+    counts, images = {}, {}
+    serve = pipe.jit_generate(num_steps=STEPS, guidance_scale=GUIDANCE)
+    eager_gen = lambda g, **kw: pipe.generate(
+        g, num_steps=STEPS, guidance_scale=GUIDANCE, **kw)
+    for mode, fn in (("jit_generate", serve), ("generate", eager_gen)):
+        g = torch.Generator(device=dev).manual_seed(SEED + 5)
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        images[mode] = []
+        for req in range(2):
+            phases = {}
+            t0 = time.perf_counter()
+            img = fn(g, phase_seconds=phases, **inputs)
+            torch.cuda.synchronize()
+            images[mode].append(img)
+            log(f"graph {mode} request {req}: "
+                f"{time.perf_counter() - t0:.3f} s ("
+                + ", ".join(f"{k} {v:.3f} s" for k, v in phases.items())
+                + ")")
+        log(f"graph {mode} peak memory: allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, reserved "
+            f"(the graph's pool included) "
+            f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB")
+        counts[mode] = {k: w.launches for k, w in wrappers.items()}
+    for req in range(2):
+        got, want = images["jit_generate"][req], images["generate"][req]
+        if (tuple(got.shape) != (BATCH, HEIGHT, WIDTH, 3)
+                or not bool(torch.isfinite(got).all())):
+            fail(f"graph request {req}: images {tuple(got.shape)}, finite "
+                 f"{bool(torch.isfinite(got).all())}")
+        bit_check(f"graph request {req} images", got, want, [want, want])
+    if counts["jit_generate"] != counts["generate"]:
+        fail(f"graph: replayed launches {counts['jit_generate']} != eager "
+             f"{counts['generate']}")
+    for w, n in zip(wrappers.values(), counts["jit_generate"].values()):
+        w.launches = n
+    return gate_launches(wrappers, "graph",
+                         {k: 2 * n for k, n in CONV_PER_REQUEST.items()})
+
+
 def main():
     if not (ROOT / "idmvton_tpu_torch" / "ops" / "csrc").is_dir():
         fail("idmvton_tpu_torch/ not found beside chip_smoke.py: run it from "
@@ -937,14 +1073,15 @@ def main():
         gen = torch.Generator(device=dev).manual_seed(SEED + 1)
         inputs = make_inputs(models, dev, gen)
 
-        # -- phase 4: one denoise step, kernels vs plain ---------------------
+        # -- phase 4: one denoise step, kernels vs plain; the captured step --
         check_step(pipe, inputs, gen, "bf16")
         check_online_softmax_step(pipe, inputs, gen)
+        counts = {"graph": check_graph(pipe, inputs, gen, wrappers)}
 
         # -- phase 5: serve 2 requests through the bf16 path -----------------
-        counts = {"bf16": serve_requests(
+        counts["bf16"] = serve_requests(
             pipe, inputs, gen, wrappers, "bf16",
-            exact={k: 2 * n for k, n in CONV_PER_REQUEST.items()})}
+            exact={k: 2 * n for k, n in CONV_PER_REQUEST.items()})
 
         # -- the fp32 decode (VAEConfig.force_upcast) -------------------------
         counts["decode_fp32"] = check_decode_fp32(models, wrappers, gen)

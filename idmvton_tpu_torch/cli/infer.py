@@ -10,8 +10,9 @@ main(), :201-426), with the same flags plus ``--device``:
 It runs on the card (``--device cuda``, the default) unless asked for the
 CPU. Weights are random, from seed 0 (shape and speed validation only):
 loading a checkpoint (``--pretrained`` / ``--diffusers``) is not ported
-yet. Every batch goes through ``TryonPipeline.stepwise_generate``, whose
-math the JAX package's fused ``jit_generate`` shares.
+yet. Every batch goes through ``TryonPipeline.jit_generate``, as in the
+JAX package's CLI on every backend but the TPU: on the card each denoise
+step is replayed from one captured CUDA graph.
 
 ``main`` reads the dataset and writes the images (PIL); ``build`` makes
 the pipeline, tokenizers and generator it serves with; ``run`` is the
@@ -112,9 +113,9 @@ def run(args, pipe, models, loader, tok1, tok2, generator):
     from idmvton_tpu_torch.data.image import denormalize_to_uint8
     param = next(models.unet.parameters())
     dev, dtype = param.device, param.dtype
-    gen = pipe.stepwise_generate(num_steps=args.num_inference_steps,
-                                 guidance_scale=args.guidance_scale,
-                                 strength=args.strength)
+    gen = pipe.jit_generate(num_steps=args.num_inference_steps,
+                            guidance_scale=args.guidance_scale,
+                            strength=args.strength)
     isz = models.vision_cfg.image_size
 
     def tensor(a):

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from idmvton_tpu_torch.models.layers import (
     Linear, Norm, QuantLinear, layer_norm, linear, quantize_linear_int8,
+    weights_changed_,
 )
 from idmvton_tpu_torch.ops.attention import (
     concat_kv_attention, decoupled_ip_attention, sdpa,
@@ -261,4 +262,4 @@ def quantize_unet_linears_int8(unet: nn.Module, *,
         if attn_qkv:
             blk.attn1.to_qkv = quantize_linear_int8(blk.attn1.to_qkv)
         blk.ff.proj_in = quantize_linear_int8(blk.ff.proj_in)
-    return unet
+    return weights_changed_(unet)

@@ -68,10 +68,17 @@ class CLIPText(nn.Module):
             Linear(cfg.hidden_size, cfg.projection_dim, bias=False, **kw)
             if cfg.use_final_projection else None)
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, *, clip_skip: int = None):
         """input_ids (B, S) int. Returns {"penultimate" (B, S, hidden),
-        "last_hidden", and "pooled" (B, projection_dim) when projected}."""
+        "last_hidden", and "pooled" (B, projection_dim) when projected}.
+        ``clip_skip=k`` takes hidden_states[-(k + 2)] as "penultimate" (k
+        more final layers skipped); None or 0 is the default. The pooled
+        output always comes off the whole tower."""
         cfg = self.cfg
+        skip = clip_skip or 0
+        if not 0 <= skip < cfg.num_layers:
+            raise ValueError(f"clip_skip={clip_skip} out of range for "
+                             f"{cfg.num_layers}-layer tower")
         act = ACTIVATIONS[cfg.hidden_act]
         # an id past the table reads its last row, as JAX's gather clamps
         # it (the hash tokenizer's 49406/49407 on the tiny 1000-token vocab)
@@ -81,7 +88,7 @@ class CLIPText(nn.Module):
         x = x + pos[None].to(x.dtype)
         penultimate = None
         for i, lyr in enumerate(self.layers):
-            if i == cfg.num_layers - 1:
+            if i == cfg.num_layers - 1 - skip:
                 penultimate = x
             x = lyr(x, num_heads=cfg.num_heads, act=act, causal=True)
         last = layer_norm(self.final_ln, x)

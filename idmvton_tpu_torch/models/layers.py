@@ -167,6 +167,20 @@ def reset_parameters_(module: nn.Module, generator: torch.Generator):
             m.reset_own_parameters_(generator)
 
 
+def weights_changed_(module: nn.Module) -> nn.Module:
+    """Marks ``module``'s weights as rewritten or replaced (the loader, an
+    in-place quantization): a CUDA graph captured over them
+    (``pipeline.graph``) is captured again."""
+    module.weights_version = getattr(module, "weights_version", 0) + 1
+    return module
+
+
+def weights_version(module: nn.Module) -> int:
+    """The sum of ``weights_changed_`` marks over ``module`` and its
+    submodules."""
+    return sum(getattr(m, "weights_version", 0) for m in module.modules())
+
+
 # ---------------------------------------------------------------------------
 # apply functions
 # ---------------------------------------------------------------------------

@@ -150,7 +150,13 @@ class UNet(nn.Module):
             if n_feat != cfg.num_garment_features:
                 raise ValueError(f"{n_feat} garment features, expected "
                                  f"{cfg.num_garment_features}")
-        timesteps = torch.as_tensor(timesteps, device=sample.device)
+        if isinstance(timesteps, torch.Tensor):
+            timesteps = timesteps.to(sample.device)
+        elif isinstance(timesteps, (int, float)):
+            # a fill on the device, not a copy from the host: capturable
+            timesteps = torch.full((), timesteps, device=sample.device)
+        else:
+            timesteps = torch.as_tensor(timesteps, device=sample.device)
         if timesteps.dim() == 0:
             timesteps = timesteps.expand(sample.shape[0])
         temb = self._time_embed(timesteps, added_cond, dtype)

@@ -79,5 +79,8 @@ def decoupled_ip_attention(q, k_text, v_text, k_ip, v_ip, *,
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     out_text = attend(q, k_text, v_text, scale)
     out_ip = attend(q, k_ip, v_ip, scale)
-    return out_text + torch.tensor(ip_scale, dtype=out_text.dtype,
-                                   device=out_text.device) * out_ip
+    # ip_scale rounded to the activations' type on the host, as a tensor of
+    # that type would hold it, then a scalar product: no per-call tensor on
+    # the device, nothing copied from the host (capturable)
+    ip_scale = torch.tensor(ip_scale, dtype=out_text.dtype).item()
+    return out_text + ip_scale * out_ip

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from idmvton_tpu_torch.models.layers import weights_changed_
 from idmvton_tpu_torch.pipeline.tryon import COMPONENTS, TryonModels
 
 
@@ -58,8 +59,10 @@ def _fill(module, tree, prefix, filled):
 
 
 def load_module_params(module: nn.Module, tree: dict) -> nn.Module:
-    """Copy one component's pytree into ``module`` (in place)."""
+    """Copy one component's pytree into ``module`` (in place); a CUDA
+    graph captured over its old weights is captured again."""
     filled = set()
+    weights_changed_(module)
     _fill(module, tree, "", filled)
     missing = [n for n, p in module.named_parameters() if id(p) not in filled]
     if missing:

@@ -20,7 +20,11 @@ for W8A8 in place and sets ``IDMVTON_CROSS_KERNEL=1`` and
 summed by kernel group (``GROUPS``: each kernel of the port, cuBLAS
 GEMMs, PyTorch's elementwise, copy and reduce kernels). Traces go to
 ``{tag}{bf16,variant}_step_trace.json`` in ``torch_tiny_step_probe.OUT``;
-the last line is one JSON object with every reading.
+the last line is one JSON object with every reading. Each path is then
+profiled again with the step replayed from its CUDA graph
+(``TryonPipeline.step_graph``, as ``stepwise_generate`` and
+``jit_generate`` run it on the card): ``{path}_graph`` in the JSON line,
+``{tag}{path}_graph_step_trace.json``.
 """
 
 from __future__ import annotations
@@ -122,6 +126,8 @@ def main():
         lat = torch.randn(lat_shape, generator=g, device=dev).bfloat16()
         noise = torch.randn(lat_shape, generator=g, device=dev).bfloat16()
         ts, prev_ts = pipe.scheduler.timesteps_and_prev(smoke.STEPS)
+        table = torch.from_numpy(pipe.scheduler.step_table(
+            ts, prev_ts)).to(dev)
 
         def step():
             return pipe.denoise_step(cond, lat, int(ts[0]), int(prev_ts[0]),
@@ -146,6 +152,27 @@ def main():
             label = args.tag + path
             res[path] = profile_step(step, wall, label=label, top_n=15)
             res[path]["groups"] = grouped(label)
+            if not hasattr(pipe, "step_graph"):   # a checkout before the graph
+                continue
+            # the same step replayed: 2 to capture, 3 timed, 1 profiled
+            steps = pipe.step_graph(cond, lat, guidance_scale=smoke.GUIDANCE,
+                                    impl="cuda")
+            steps.start(table, lat, cond)
+            for _ in range(2):
+                steps.step(noise)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                steps.step(noise)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / 3 * 1e3
+            res[path + "_graph"] = profile_step(
+                lambda: steps.step(noise), wall, label=label + "_graph",
+                top_n=15)
+            res[path + "_graph"]["groups"] = grouped(label + "_graph")
+            res[path + "_graph"]["capture_s"] = steps.capture_seconds
+            del steps
+            torch.cuda.empty_cache()
 
     print(json.dumps(res), flush=True)
 

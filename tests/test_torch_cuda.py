@@ -4,6 +4,11 @@ and key tiles, GEGLU, uncond rows, sink tokens, both softmax paths; for the
 opt-in variants: int8 codes at every C, short and chunked contexts, padded
 rows at both ends of an image).
 
+The captured denoise step (``pipeline/graph.py``): a replayed step equals
+the eager one bit for bit at the tiny and at a full-width-slice UNet, a
+flipped switch or new weights capture again, and a replayed request
+launches what an eager one does and gives its images.
+
 Marked ``cuda``: each test skips without a card. This file imports no JAX,
 so it also runs on a host that has none:
 ``python -m pytest --noconftest -q tests/test_torch_cuda.py``.
@@ -645,3 +650,148 @@ def test_kernels_refuse_other_types(dev):
     with pytest.raises(ValueError, match="bfloat16"):
         cuda_attention.flash_attention_fused_qkv(
             torch.zeros(1, 300, 3, 2, 16, device=dev), 100)
+
+
+# ---------------------------------------------------------------------------
+# the captured denoise step (pipeline/graph.py)
+# ---------------------------------------------------------------------------
+
+# SDXL's UNet widths, head dim and norm groups at one layer a block and one
+# transformer a level: every kernel site of the full-width step at shapes
+# of its width (the conv, attention and ln_linear kernels at 320 / 640 /
+# 1280 channels), small enough for a test
+FULL_WIDTH_SLICE = dict(block_out_channels=(320, 640, 1280),
+                        attention_head_dim=64, transformer_depth=(0, 1, 1),
+                        layers_per_block=1, norm_num_groups=32)
+
+
+def _step_pipeline(dev, width):
+    """A bf16 pipeline of the tiny encoders and VAE with tiny or
+    full-width-slice UNets, random biases and norm affines."""
+    from idmvton_tpu_torch.core.config import UNetConfig
+    from idmvton_tpu_torch.models.layers import Norm, reset_parameters_
+    from idmvton_tpu_torch.models.unet import UNet
+    from idmvton_tpu_torch.pipeline.tryon import TryonModels, TryonPipeline
+    models = TryonModels.init(0, tiny=True, device=dev, dtype=torch.bfloat16)
+    if width == "slice":
+        gen = torch.Generator(device=dev).manual_seed(1)
+        for name, mode in (("unet", "consume"), ("garm", "emit")):
+            cfg = UNetConfig.tiny(mode, **FULL_WIDTH_SLICE)
+            unet = UNet(cfg, dtype=torch.bfloat16, device=dev)
+            reset_parameters_(unet, gen)
+            setattr(models, f"{name}_cfg", cfg)
+            setattr(models, name, unet)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    with torch.no_grad():
+        for module in models.components().values():
+            for m in module.modules():
+                for pname, p in m.named_parameters(recurse=False):
+                    if pname == "bias" or (pname == "scale"
+                                           and isinstance(m, Norm)):
+                        r = torch.randn(p.shape, generator=gen, device=dev)
+                        p.copy_(r * 0.1 + (1.0 if pname == "scale" else 0.0))
+    return TryonPipeline(models)
+
+
+def _step_inputs(pipe, dev, b=2, h=256, w=192):
+    g = torch.Generator(device=dev).manual_seed(3)
+    img = lambda: (torch.rand(b, h, w, 3, generator=g, device=dev) * 2
+                   - 1).bfloat16()
+    ids = lambda: torch.randint(0, pipe.models.clip_l_cfg.vocab_size,
+                                (b, 77), generator=g, device=dev)
+    mask = torch.zeros(b, h, w, 1, device=dev, dtype=torch.bfloat16)
+    mask[:, h // 5:4 * h // 5, w // 6:5 * w // 6] = 1
+    isz = pipe.models.vision_cfg.image_size
+    return dict(person=img(), pose=img(), cloth=img(), mask=mask,
+                prompt_ids_l=ids(), prompt_ids_g=ids(), neg_ids_l=ids(),
+                neg_ids_g=ids(), cloth_ids_l=ids(), cloth_ids_g=ids(),
+                ip_pixels=(torch.rand(b, isz, isz, 3, generator=g,
+                                      device=dev) * 2 - 1).bfloat16())
+
+
+def _replayed_vs_eager(pipe, inputs, **kw):
+    """(replayed latent, eager latent, second eager latent) of one step
+    from the same latents, conditioning and noise; the first step() of a
+    new graph runs eagerly and captures, so the step is run twice."""
+    import numpy as np
+    dev = inputs["person"].device
+    sched = pipe.scheduler
+    g = torch.Generator(device=dev).manual_seed(4)
+    cond = pipe.staged_encoder()(g, inputs)
+    b, h, w, _ = inputs["person"].shape
+    lat = torch.randn(b, h // 8, w // 8, 4, generator=g,
+                      device=dev).bfloat16()
+    noise = torch.randn(lat.shape, generator=g, device=dev).bfloat16()
+    ts, prev = sched.timesteps_and_prev(30)
+    table = torch.from_numpy(sched.step_table(
+        ts, prev, np.concatenate([ts[1:], [-1]]))).to(dev)
+    i = 3
+    eager = [pipe.denoise_step(cond, lat, int(ts[i]), int(prev[i]),
+                               step_noise=noise, **kw) for _ in range(2)]
+    steps = pipe.step_graph(cond, lat, **kw)
+    for _ in range(2):
+        steps.start(table[i:], lat, cond)
+        steps.step(noise)
+    return steps, steps.lat.clone(), eager
+
+
+@pytest.mark.parametrize("width", ["tiny", "slice"])
+def test_replayed_step_equals_eager_step(dev, width):
+    pipe = _step_pipeline(dev, width)
+    with torch.inference_mode():
+        steps, got, (want, again) = _replayed_vs_eager(
+            pipe, _step_inputs(pipe, dev), guidance_rescale=0.3)
+    assert steps.graph is not None
+    assert torch.equal(want, again)
+    assert torch.equal(got, want)
+
+
+def test_recapture_after_fixed_shift_flip_and_quantization(dev, monkeypatch):
+    """A flipped fixed-shift switch and the W8A8 quantization each give a
+    new graph, whose replay equals the eager step under the new switch or
+    weights."""
+    from idmvton_tpu_torch.models.attention import (
+        quantize_unet_linears_int8,
+    )
+    monkeypatch.setenv("IDMVTON_FLASH_FIXED_SHIFT", "1")
+    pipe = _step_pipeline(dev, "slice")
+    inputs = _step_inputs(pipe, dev)
+    with torch.inference_mode():
+        first, got, (want, _) = _replayed_vs_eager(pipe, inputs)
+        assert torch.equal(got, want)
+        monkeypatch.setenv("IDMVTON_FLASH_FIXED_SHIFT", "0")
+        online, got_o, (want_o, _) = _replayed_vs_eager(pipe, inputs)
+        assert online is not first and torch.equal(got_o, want_o)
+        assert not torch.equal(got_o, got)
+        monkeypatch.setenv("IDMVTON_FLASH_FIXED_SHIFT", "1")
+        quantize_unet_linears_int8(pipe.models.unet)
+        quant, got_q, (want_q, _) = _replayed_vs_eager(pipe, inputs)
+        assert quant is not first and torch.equal(got_q, want_q)
+        assert not torch.equal(got_q, got)
+        assert len(pipe.graphs.graphs) == 1
+
+
+def test_replayed_request_counts_equal_eager(dev):
+    """jit_generate (every step but the first replayed) and generate from
+    generators of one seed: the same images and, per kernel, the same
+    launch counts; a second request replays every step."""
+    from idmvton_tpu_torch.pipeline.graph import launch_counters
+    pipe = _step_pipeline(dev, "tiny")
+    inputs = _step_inputs(pipe, dev)
+    counters = launch_counters()
+    out = {}
+    for mode in ("jit", "eager"):
+        g = torch.Generator(device=dev).manual_seed(5)
+        for f in counters.values():
+            f.launches = 0
+        if mode == "jit":
+            fn = pipe.jit_generate(num_steps=4, inpaint_blend=True)
+        else:
+            fn = lambda g, **kw: pipe.generate(g, num_steps=4,
+                                               inpaint_blend=True, **kw)
+        images = [fn(g, **inputs) for _ in range(2)]
+        out[mode] = (images, {k: f.launches for k, f in counters.items()})
+    for a, b in zip(out["jit"][0], out["eager"][0]):
+        assert torch.equal(a, b)
+    assert out["jit"][1] == out["eager"][1]
+    assert out["jit"][1]["conv3x3"] > 0
