@@ -24,7 +24,8 @@ failure:
    library call is timed eagerly and as 10 launches in a CUDA graph
    (``graph_ms``, ``library_graph_ms``: the device alone);
 4. give the full-width stack random biases and norm affines from the seed
-   (the init zeroes them, which would hide a bias or scale/shift fault),
+   (the init zeroes them, which would hide a bias or scale/shift fault;
+   rounded through bf16, as a bf16 load of any checkpoint rounds them),
    then one full-width denoise step (GarmentNet, TryonNet, CFG, DDPM step)
    with ``impl="cuda"`` against ``impl="torch"`` on the same inputs, and
    one more with ``IDMVTON_FLASH_FIXED_SHIFT=0`` (the attention kernel's
@@ -49,12 +50,26 @@ failure:
    BatchLoader, tokenizers and ip_pixels resize) over one in-memory batch
    of 2 synthetic VITON-HD samples on the same stack: uint8 images, the
    bf16 path's kernels and ``flash_attention`` never;
-7. the opt-in variants of the same path: quantize both UNets for W8A8
+7. checkpoint IO at full width: export the stack of phases 4-6 through
+   the port's exporters (``weights.checkpoint.save_diffusers``) as a bf16
+   diffusers tree into a temporary directory (its size and the free space
+   printed first; too little space fails), load it with
+   ``cli.infer.load_models`` on ``--pretrained DIR --diffusers --device
+   cuda`` into a second stack beside the first (every parameter
+   ``torch.equal`` to its source; the load-time softmax calibration's
+   report printed), then ``cli.infer.run`` on phase 6's batch and seed:
+   the uint8 images equal phase 6's bit for bit, with the same launch
+   counts; export and load seconds, the tree's bytes, the peak host RSS
+   during the load and the card's peak allocated memory printed; the
+   second stack and the tree are freed (the load's stages alone, a cold
+   page cache and a fresh process's calibration are timed by
+   ``python3 -m idmvton_tpu_torch.weights.load_profile``);
+8. the opt-in variants of the same path: quantize both UNets for W8A8
    serving (``IDMVTON_GEMM_INT8=2`` in the JAX bench: TryonNet's to_qkv and
    ff.proj_in, GarmentNet's ff.proj_in), set ``IDMVTON_CROSS_KERNEL=1`` and
    ``IDMVTON_CONV_PADACC=1``, hold one full-width step with ``impl="cuda"``
    against ``impl="torch"``, and serve 2 more requests (the variant path);
-8. the CLI's ``--tiny`` mode (``cli.infer.load_models``, random biases and
+9. the CLI's ``--tiny`` mode (``cli.infer.load_models``, random biases and
    norm affines, then ``run`` at
    768x1024, batch 2, 30 steps): one tiny step with ``impl="cuda"``
    against ``impl="torch"``, then a batch, whose 64-wide level runs
@@ -62,7 +77,7 @@ failure:
    the launch counters, zeroed before each serving phase and read after
    it, show that each path launched every kernel it runs and no other, and
    each conv kernel exactly once a conv site of the path;
-9. print a JSON line with each kernel's result, then the device line.
+10. print a JSON line with each kernel's result, then the device line.
 """
 
 from __future__ import annotations
@@ -140,6 +155,8 @@ BF16_PATH = ("ln_linear", "fused_layer_norm", "gn_spatial_stats", "conv3x3",
 PATH_KERNELS = {
     "bf16": BF16_PATH,
     "cli": BF16_PATH,
+    # phase 6's batch again, on the stack loaded from its exported tree
+    "checkpoint": BF16_PATH,
     "variant": ("ln_linear", "fused_layer_norm", "gn_spatial_stats",
                 "conv3x3_hblock", "flash_attention_gemm", "ln_linear_i8",
                 "cross_attention_small_kv", "conv3x3_padacc"),
@@ -204,7 +221,10 @@ def random_affine_(module, seed: int):
     """Overwrites every bias (of the layers that have one) with N(0,
     AFFINE_STD^2) and every norm's scale with 1 + N(0, AFFINE_STD^2), from
     ``seed``, in place (tests/test_torch_affine.py's ``random_affine`` on
-    the modules: this script imports nothing of tests/)."""
+    the modules: this script imports nothing of tests/). Each draw is
+    rounded through bf16: the fp32 norm parameters then hold what a bf16
+    load of any checkpoint gives them (the loader rounds norms through the
+    load type), so the bf16 tree of phase 7 holds the stack exactly."""
     import torch
     from idmvton_tpu_torch.models.layers import Norm
     p0 = next(module.parameters())
@@ -220,7 +240,7 @@ def random_affine_(module, seed: int):
                 r.mul_(AFFINE_STD)
                 if name == "scale":
                     r.add_(1.0)
-                p.copy_(r)
+                p.copy_(r.bfloat16())
 
 
 def errors(got, want):
@@ -855,7 +875,7 @@ def cli_run(args, models, built, wrappers, path, exact=None):
     ``cli.infer.build(args, models)``, and the launch counts zeroed just
     before and read just after; fails unless the images are uint8
     (2, HEIGHT, WIDTH, 3) and not constant and the launches pass
-    ``gate_launches``."""
+    ``gate_launches``. Returns (launch counts, images)."""
     import numpy as np
     from idmvton_tpu_torch.cli import infer
     from idmvton_tpu_torch.data.datasets import BatchLoader
@@ -878,7 +898,7 @@ def cli_run(args, models, built, wrappers, path, exact=None):
     log(f"{path}: cli.infer.run batch of {len(names)} ({names}) in "
         f"{secs:.3f} s: uint8 {images.shape}, mean {images.mean():.2f}, "
         f"std {images.std():.2f}")
-    return counts
+    return counts, images
 
 
 def bit_check(label, got, want, runs):
@@ -1003,6 +1023,139 @@ def check_graph(pipe, inputs, gen, wrappers):
                          {k: 2 * n for k, n in CONV_PER_REQUEST.items()})
 
 
+class RssPeak:
+    """The process's peak resident set while in a ``with``, sampled from
+    /proc/self/statm every ``period`` seconds on a thread."""
+
+    def __init__(self, period: float = 0.01):
+        self.period = period
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.start = self.peak = self._rss()
+
+    def _rss(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page
+
+    def _sample(self):
+        while not self._done.wait(self.period):
+            self.peak = max(self.peak, self._rss())
+
+    def __enter__(self):
+        import threading
+        self._done = threading.Event()
+        self.start = self.peak = self._rss()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._done.set()
+        self._thread.join(timeout=10)
+        self.peak = max(self.peak, self._rss())
+        return False
+
+
+def check_checkpoint(models, wrappers, cli_images, cli_counts, exact):
+    """Phase 7: ``models`` exported as a bf16 diffusers tree, loaded back
+    through the CLI's ``load_models`` into a second stack (every parameter
+    equal to its source), and phase 6's CLI batch served from it: the same
+    uint8 images bit for bit and the same launch counts. Returns the
+    batch's launch counts."""
+    import gc
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from idmvton_tpu_torch.cli import infer
+    from idmvton_tpu_torch.pipeline.tryon import COMPONENTS
+    from idmvton_tpu_torch.weights.checkpoint import save_diffusers
+    n_params = sum(p.numel() for m in models.components().values()
+                   for p in m.parameters())
+    # every exported tensor in bf16; the Resampler rides in the UNet file
+    need = 2 * n_params
+    tmp = tempfile.mkdtemp(prefix="idmvton_ckpt_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        log(f"checkpoint: bf16 tree of {n_params / 1e9:.3f} B params, "
+            f"{need / 1e9:.2f} GB, into {tmp} ({free / 1e9:.2f} GB free)")
+        if free < need + 2**30:
+            fail(f"checkpoint: {free / 1e9:.2f} GB free in {tmp}, the tree "
+                 f"needs {need / 1e9:.2f} GB")
+        t0 = time.perf_counter()
+        save_diffusers(tmp, models, dtype=torch.bfloat16)
+        export_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, files in os.walk(tmp) for f in files)
+        log(f"checkpoint export: {export_s:.3f} s, {size} bytes on disk "
+            f"({size / 1e9:.3f} GB)")
+
+        args = infer.parse_args(["--data_dir", "-", "--pretrained", tmp,
+                                 "--diffusers", "--device", "cuda"])
+        torch.cuda.synchronize()
+        base_alloc = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with RssPeak() as rss:
+            t0 = time.perf_counter()
+            loaded = infer.load_models(args, torch.bfloat16)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        log(f"checkpoint load (cli.infer.load_models, page cache warm from "
+            f"the export): {load_s:.3f} s, {size / load_s / 1e9:.3f} GB/s; "
+            f"peak host RSS {rss.peak / 2**30:.3f} GiB (before "
+            f"{rss.start / 2**30:.3f} GiB, +{(rss.peak - rss.start) / 2**30:.3f}"
+            f" GiB); card peak allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (first "
+            f"stack and its pools {base_alloc / 2**30:.2f} GiB), now "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        log(f"checkpoint calibration: {json.dumps(loaded.calibration)}")
+        if loaded.calibration is None:
+            fail("checkpoint: the load ran no softmax calibration")
+
+        diff, total = [], 0
+        for name in COMPONENTS:
+            src = dict(getattr(models, name).named_parameters())
+            got = dict(getattr(loaded, name).named_parameters())
+            if src.keys() != got.keys():
+                fail(f"checkpoint: {name} parameters differ in names")
+            for k, p in src.items():
+                total += 1
+                if got[k].dtype != p.dtype or not torch.equal(got[k], p):
+                    diff.append(f"{name}.{k}")
+        log(f"checkpoint: {total - len(diff)} of {total} parameters equal "
+            f"their source")
+        if diff:
+            fail(f"checkpoint: {len(diff)} parameters differ, e.g. "
+                 f"{diff[:5]}")
+
+        counts, images = cli_run(args, loaded, infer.build(args, loaded),
+                                 wrappers, "checkpoint", exact=exact)
+        log(f"checkpoint: card peak allocated over the load and the batch, "
+            f"two stacks resident: "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        same = np.array_equal(images, cli_images)
+        log(f"checkpoint: images equal phase 6's bit for bit {same}, max "
+            f"|diff| {np.abs(images.astype(int) - cli_images).max()}; "
+            f"launch counts equal {counts == cli_counts}")
+        if not same:
+            fail("checkpoint: the loaded stack's images differ from phase 6's")
+        if counts != cli_counts:
+            fail(f"checkpoint: launches {counts} != phase 6's {cli_counts}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # a pipeline and its captured steps reference each other: collect the
+    # cycle, or the second stack stays resident through the later phases
+    del loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    now = torch.cuda.memory_allocated()
+    log(f"checkpoint: second stack freed, {now / 2**30:.2f} GiB allocated "
+        f"(before the load {base_alloc / 2**30:.2f} GiB)")
+    if now > base_alloc + 2**30:
+        fail(f"checkpoint: {now / 2**30:.2f} GiB still allocated after "
+             f"freeing the second stack")
+    return counts
+
+
 def main():
     if not (ROOT / "idmvton_tpu_torch" / "ops" / "csrc").is_dir():
         fail("idmvton_tpu_torch/ not found beside chip_smoke.py: run it from "
@@ -1088,12 +1241,16 @@ def main():
 
         # -- phase 6: the CLI's batch loop at full width ---------------------
         args = infer.parse_args(["--data_dir", "-"])
-        counts["cli"] = cli_run(args, models, infer.build(args, models),
-                                wrappers, "cli",
-                                exact=dict(CONV_PER_REQUEST,
-                                           flash_attention=0))
+        cli_exact = dict(CONV_PER_REQUEST, flash_attention=0)
+        counts["cli"], cli_images = cli_run(
+            args, models, infer.build(args, models), wrappers, "cli",
+            exact=cli_exact)
 
-        # -- phase 7: the opt-in variants of the same path -------------------
+        # -- phase 7: export the stack as a bf16 tree, load it, serve --------
+        counts["checkpoint"] = check_checkpoint(
+            models, wrappers, cli_images, counts["cli"], cli_exact)
+
+        # -- phase 8: the opt-in variants of the same path -------------------
         from idmvton_tpu_torch.models.attention import (
             quantize_unet_linears_int8,
         )
@@ -1117,7 +1274,7 @@ def main():
         os.environ["IDMVTON_CROSS_KERNEL"] = "0"
         os.environ["IDMVTON_CONV_PADACC"] = "0"
 
-        # -- phase 8: the CLI's --tiny mode (kernel #9) ----------------------
+        # -- phase 9: the CLI's --tiny mode (kernel #9) ----------------------
         args = infer.parse_args(["--data_dir", "-", "--tiny",
                                  "--device", "cuda"])
         tiny = infer.load_models(args, torch.bfloat16)
@@ -1126,7 +1283,7 @@ def main():
         built = infer.build(args, tiny)
         check_step(built[0], make_inputs(tiny, dev, gen), gen, "tiny",
                    TINY_STEP_TOLS)
-        counts["tiny"] = cli_run(
+        counts["tiny"], _ = cli_run(
             args, tiny, built, wrappers, "tiny",
             exact=dict(TINY_CONV_PER_BATCH,
                        flash_attention=TINY_FLASH_PER_STEP * STEPS))

@@ -8,9 +8,12 @@ main(), :201-426), with the same flags plus ``--device``:
       --guidance_scale 2.0 --test_batch_size 2 [--tiny] [--device cpu]
 
 It runs on the card (``--device cuda``, the default) unless asked for the
-CPU. Weights are random, from seed 0 (shape and speed validation only):
-loading a checkpoint (``--pretrained`` / ``--diffusers``) is not ported
-yet. Every batch goes through ``TryonPipeline.jit_generate``, as in the
+CPU. ``--pretrained DIR --diffusers`` loads a diffusers-layout tree (the
+yisol/IDM-VTON hub layout, ``weights.checkpoint.from_diffusers``),
+``--pretrained DIR`` alone the port's pipeline checkpoint
+(``load_pipeline``); without ``--pretrained`` the weights are random, from
+seed 0 (shape and speed validation only). Every batch goes through
+``TryonPipeline.jit_generate``, as in the
 JAX package's CLI on every backend but the TPU: on the card each denoise
 step is replayed from one captured CUDA graph.
 
@@ -43,7 +46,8 @@ def parse_args(argv=None):
                    help="DressCode category (reference: inference_dc.py)")
     p.add_argument("--output_dir", default="result")
     p.add_argument("--pretrained", default=None,
-                   help="checkpoint dir (not ported yet)")
+                   help="pipeline checkpoint dir (or diffusers dir with "
+                        "--diffusers)")
     p.add_argument("--diffusers", action="store_true")
     p.add_argument("--tokenizer_dir", default=None,
                    help="dir with tokenizer/ tokenizer_2/ vocab files")
@@ -68,27 +72,34 @@ def parse_args(argv=None):
 
 
 def load_models(args, dtype):
-    """The try-on stack on ``args.device``, random weights from seed 0."""
+    """The try-on stack on ``args.device``: from the diffusers tree
+    ``--pretrained`` with ``--diffusers``, from the pipeline checkpoint
+    ``--pretrained`` without, else random weights from seed 0."""
     from idmvton_tpu_torch.pipeline.tryon import TryonModels
-    if args.pretrained or args.diffusers:
-        raise NotImplementedError(
-            "--pretrained / --diffusers: loading checkpoints into the port "
-            "is not ported yet (ROADMAP Queue 1 item 11)")
+    from idmvton_tpu_torch.weights.checkpoint import (
+        from_diffusers, load_pipeline,
+    )
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA card is visible; pass "
                            "--device cpu to run on the CPU")
+    if args.pretrained and args.diffusers:
+        return from_diffusers(args.pretrained, dtype, device=device)
+    if args.pretrained:
+        return load_pipeline(args.pretrained, dtype, device=device)
     return TryonModels.init(0, tiny=args.tiny, device=device, dtype=dtype)
 
 
 def build(args, models):
     """The CLI's serving objects for ``models``: the try-on pipeline (the
     SDXL inference scheduler), the two tokenizers (vocab files from
-    ``--tokenizer_dir``, else the hash tokenizer) and the request generator
+    ``--tokenizer_dir``, else from the ``--pretrained`` tree with
+    ``--diffusers``, else the hash tokenizer) and the request generator
     seeded from ``--seed`` on ``args.device``."""
     from idmvton_tpu_torch.data.tokenizer import load_tokenizers
     from idmvton_tpu_torch.pipeline.tryon import TryonPipeline
-    tok_dir = args.tokenizer_dir
+    tok_dir = args.tokenizer_dir or (args.pretrained if args.diffusers
+                                     else None)
     tok1, tok2 = load_tokenizers(
         os.path.join(tok_dir, "tokenizer") if tok_dir else None,
         os.path.join(tok_dir, "tokenizer_2") if tok_dir else None)

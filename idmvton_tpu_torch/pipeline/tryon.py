@@ -56,6 +56,8 @@ from idmvton_tpu_torch.pipeline.graph import (
 
 COMPONENTS = ("unet", "garm", "vae", "clip_l", "clip_g", "vision",
               "resampler")
+CFG_FIELDS = ("unet_cfg", "garm_cfg", "vae_cfg", "clip_l_cfg", "clip_g_cfg",
+              "vision_cfg", "resampler_cfg")
 
 
 @dataclasses.dataclass
@@ -76,6 +78,9 @@ class TryonModels:
     vision: CLIPVision
     resampler_cfg: ResamplerConfig
     resampler: Resampler
+    # the loader's fixed-shift softmax calibration report
+    # (weights.checkpoint.calibrate_attention_softmax), None if it did not run
+    calibration: Optional[dict] = None
 
     @staticmethod
     def configs(tiny: bool = False):
@@ -92,13 +97,16 @@ class TryonModels:
 
     @staticmethod
     def init(seed: Optional[int] = 0, *, tiny: bool = False,
-             device="cuda", dtype=torch.bfloat16) -> "TryonModels":
-        """Build the stack on ``device`` (full SDXL widths, or the tiny test
-        configs). With a ``seed``, parameters get the JAX package's random
-        init from a generator on ``device``; with ``seed=None`` they are
-        left uninitialized for a loader to fill."""
+             cfgs: Optional[dict] = None, device="cuda",
+             dtype=torch.bfloat16) -> "TryonModels":
+        """Build the stack on ``device`` (full SDXL widths, the tiny test
+        configs, or ``cfgs``: field of ``CFG_FIELDS`` -> config, in place
+        of that choice). With a ``seed``, parameters get the JAX package's
+        random init from a generator on ``device``; with ``seed=None`` they
+        are left uninitialized for a loader to fill."""
         device = torch.device(device)
-        u, g, v, tl, tg, vi, rs = TryonModels.configs(tiny)
+        u, g, v, tl, tg, vi, rs = (TryonModels.configs(tiny) if cfgs is None
+                                   else (cfgs[f] for f in CFG_FIELDS))
         kw = dict(dtype=dtype, device=device)
         models = TryonModels(
             unet_cfg=u, unet=UNet(u, **kw), garm_cfg=g, garm=UNet(g, **kw),

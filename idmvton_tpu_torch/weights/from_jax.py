@@ -2,7 +2,8 @@
 
 The tree is nested dicts / lists of numpy arrays -- e.g.
 ``jax.tree.map(np.asarray, TryonModels.init(...).params())`` on the JAX
-side -- so this module needs no JAX. The port's modules store the JAX
+side -- so this module needs no JAX, or of torch tensors on any device
+(``weights.converter``'s trees). The port's modules store the JAX
 layouts (linear ``(in, out)``, conv HWIO, fused ``to_qkv`` / ``to_kv`` /
 ``to_kv_ip``) under the JAX key names, so every leaf copies as it is, cast
 to the parameter's type. Every parameter of the module must be filled, and
@@ -49,7 +50,7 @@ def _fill(module, tree, prefix, filled):
         param = _child(module, key, path)
         if not isinstance(param, torch.Tensor):
             raise KeyError(f"{path}: no parameter in {type(module).__name__}")
-        src = _to_tensor(sub)
+        src = sub if isinstance(sub, torch.Tensor) else _to_tensor(sub)
         if tuple(src.shape) != tuple(param.shape):
             raise ValueError(f"{path}: shape {tuple(src.shape)} != "
                              f"{tuple(param.shape)}")

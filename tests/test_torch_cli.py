@@ -6,7 +6,9 @@ of the JAX package); on the synthetic VITON-HD and DressCode trees of
 tests/test_data_cli.py and tests/test_dresscode.py every sample, batch,
 token id and augmentation is held bit for bit against the JAX package's.
 The ``ip_pixels`` resize is held against ``jax.image.resize(...,
-"bilinear")``; the CLIs run end to end with ``--tiny --device cpu``.
+"bilinear")``; the CLIs run end to end with ``--tiny --device cpu``, and
+on a diffusers tree JAX wrote (``--pretrained TREE --diffusers``) to the
+images of the same parameters carried over by ``load_jax_params``.
 """
 
 import os
@@ -77,24 +79,33 @@ def test_dresscode_dataset_and_mask_match_jax(tmp_path):
             jdc.dresscode_keep_mask(_parse(), _pose(), cat, (384, 512)))
 
 
+def write_clip_vocab(d):
+    """A small CLIP BPE vocabulary (vocab.json, merges.txt) in ``d``;
+    returns their paths."""
+    import json
+    os.makedirs(d, exist_ok=True)
+    vocab = {}
+    for ch in ttok._bytes_to_unicode().values():
+        vocab[ch] = len(vocab)
+        vocab[ch + "</w>"] = len(vocab)
+    for tok in ("he", "hello</w>", "<|startoftext|>", "<|endoftext|>"):
+        vocab[tok] = len(vocab)
+    vp, mp = os.path.join(d, "vocab.json"), os.path.join(d, "merges.txt")
+    with open(vp, "w") as f:
+        json.dump(vocab, f)
+    with open(mp, "w") as f:
+        f.write("#version\nh e\nhe llo</w>\nl l\nll o</w>\n")
+    return vp, mp
+
+
 def test_tokenizers_and_image_helpers_match_jax(tmp_path):
     texts = ["model is wearing t shirts long ", "a photo of a red shirt", ""]
     for pad in (None, 0):
         kw = {} if pad is None else {"pad_token_id": pad}
         np.testing.assert_array_equal(ttok.HashTokenizer(**kw)(texts),
                                       jtok.HashTokenizer(**kw)(texts))
-    import json
-    b2u = ttok._bytes_to_unicode()
-    assert b2u == jtok._bytes_to_unicode()
-    vocab = {}
-    for ch in b2u.values():
-        vocab[ch] = len(vocab)
-        vocab[ch + "</w>"] = len(vocab)
-    for tok in ("he", "hello</w>", "<|startoftext|>", "<|endoftext|>"):
-        vocab[tok] = len(vocab)
-    vp, mp = str(tmp_path / "vocab.json"), str(tmp_path / "merges.txt")
-    json.dump(vocab, open(vp, "w"))
-    open(mp, "w").write("#version\nh e\nhe llo</w>\nl l\nll o</w>\n")
+    assert ttok._bytes_to_unicode() == jtok._bytes_to_unicode()
+    vp, mp = write_clip_vocab(str(tmp_path))
     np.testing.assert_array_equal(ttok.CLIPTokenizer(vp, mp)(texts),
                                   jtok.CLIPTokenizer(vp, mp)(texts))
     img = Image.fromarray(np.random.RandomState(1).randint(
@@ -157,13 +168,102 @@ def test_infer_dc_cli_tiny(tmp_path):
     assert sorted(os.listdir(out)) == ["000000_0.jpg", "000001_0.jpg"]
 
 
+def _images(d):
+    return {n: np.asarray(Image.open(os.path.join(d, n)))
+            for n in sorted(os.listdir(d))}
+
+
+def test_infer_cli_diffusers_tree_matches_jax_params(tmp_path, monkeypatch):
+    """``--pretrained TREE --diffusers --device cpu`` on a tree JAX's
+    save_diffusers wrote (random biases and norm affines) writes the images
+    the CLI writes from ``load_jax_params`` of the same parameters, bit for
+    bit."""
+    from idmvton_tpu.pipeline import tryon as jtryon
+    from idmvton_tpu.weights.checkpoint import save_diffusers
+    from idmvton_tpu_torch.pipeline.tryon import TryonModels
+    from idmvton_tpu_torch.weights.from_jax import load_jax_params
+    from test_torch_affine import random_affine
+    jm = jtryon.TryonModels.init(jax.random.PRNGKey(0), tiny=True,
+                                 dtype=jnp.float32)
+    tree = random_affine(jax.tree.map(np.asarray, jm.params()), 13)
+    jm = jtryon.TryonModels(**{f: getattr(jm, f) for f in (
+        "unet_cfg", "garm_cfg", "vae_cfg", "clip_l_cfg", "clip_g_cfg",
+        "vision_cfg", "resampler_cfg")}, **jax.tree.map(jnp.asarray, tree))
+    ckpt = str(tmp_path / "tree")
+    save_diffusers(ckpt, jm)
+    root = str(tmp_path / "data")
+    make_viton_tree(root, n=2)
+    run = ["--data_dir", root, "--unpaired", *TINY]
+    infer.main(run + ["--output_dir", str(tmp_path / "loaded"),
+                      "--pretrained", ckpt, "--diffusers"])
+    monkeypatch.setattr(infer, "load_models", lambda args, dtype: (
+        load_jax_params(TryonModels.init(None, tiny=True, device="cpu",
+                                         dtype=dtype), tree)))
+    infer.main(run + ["--output_dir", str(tmp_path / "jax_params")])
+    got, want = _images(str(tmp_path / "loaded")), _images(
+        str(tmp_path / "jax_params"))
+    assert got.keys() == want.keys() and len(got) == 2
+    for n in want:
+        np.testing.assert_array_equal(got[n], want[n], err_msg=n)
+
+
+def test_infer_cli_tokenizer_dir_falls_back_to_tree(tmp_path):
+    """With ``--diffusers`` the tokenizers come from the tree's
+    tokenizer/ and tokenizer_2/ unless ``--tokenizer_dir`` names another
+    directory (JAX's CLI); without it, the hash tokenizer."""
+    from idmvton_tpu_torch.pipeline.tryon import TryonModels
+    tree = str(tmp_path / "tree")
+    vp, mp = write_clip_vocab(os.path.join(tree, "tokenizer"))
+    write_clip_vocab(os.path.join(tree, "tokenizer_2"))
+    models = TryonModels.init(0, tiny=True, device="cpu", dtype=torch.float32)
+    texts = ["hello", "he said hello"]
+
+    def toks(*flags):
+        args = infer.parse_args(["--data_dir", "d", "--device", "cpu",
+                                 *flags])
+        return infer.build(args, models)[1:3]
+
+    tok1, tok2 = toks("--pretrained", tree, "--diffusers")
+    assert isinstance(tok1, ttok.CLIPTokenizer)
+    assert isinstance(tok2, ttok.CLIPTokenizer)
+    np.testing.assert_array_equal(tok1(texts),
+                                  ttok.CLIPTokenizer(vp, mp)(texts))
+    np.testing.assert_array_equal(
+        tok2(texts), ttok.CLIPTokenizer(vp, mp, pad_token_id=0)(texts))
+    for flags in (("--pretrained", tree),
+                  ("--pretrained", tree, "--diffusers", "--tokenizer_dir",
+                   str(tmp_path / "elsewhere"))):
+        assert all(isinstance(t, ttok.HashTokenizer) for t in toks(*flags))
+
+
+def test_infer_cli_pipeline_checkpoint(tmp_path):
+    """``--pretrained DIR`` alone loads the port's pipeline checkpoint."""
+    from idmvton_tpu_torch.pipeline.tryon import COMPONENTS, TryonModels
+    from idmvton_tpu_torch.weights.checkpoint import save_pipeline
+    src = TryonModels.init(4, tiny=True, device="cpu", dtype=torch.float32)
+    save_pipeline(str(tmp_path), src)
+    got = infer.load_models(infer.parse_args(
+        ["--data_dir", "d", "--pretrained", str(tmp_path), "--device",
+         "cpu"]), torch.float32)
+    for name in COMPONENTS:
+        want = dict(getattr(src, name).named_parameters())
+        for k, p in getattr(got, name).named_parameters():
+            assert torch.equal(p, want[k]), (name, k)
+
+
 def test_infer_cli_refuses_checkpoints_and_a_missing_card(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11"):
+    """A JAX orbax checkpoint (``params/``) is refused with the bridge
+    named; ``--device cuda`` without a card asks for ``--device cpu``."""
+    os.makedirs(tmp_path / "params")
+    (tmp_path / "config.json").write_text("{}")
+    with pytest.raises(ValueError, match="save_diffusers"):
         infer.main(["--data_dir", str(tmp_path), "--pretrained",
                     str(tmp_path), *TINY])
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="--device cpu"):
-            infer.load_models(infer.parse_args(
-                ["--data_dir", str(tmp_path), "--tiny"]), torch.float32)
+        for flags in ((), ("--pretrained", str(tmp_path), "--diffusers")):
+            with pytest.raises(RuntimeError, match="--device cpu"):
+                infer.load_models(infer.parse_args(
+                    ["--data_dir", str(tmp_path), "--tiny", *flags]),
+                    torch.float32)
     args = infer.parse_args(["--data_dir", "d"])
     assert args.device == "cuda" and args.num_inference_steps == 30

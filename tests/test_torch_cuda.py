@@ -795,3 +795,80 @@ def test_replayed_request_counts_equal_eager(dev):
         assert torch.equal(a, b)
     assert out["jit"][1] == out["eager"][1]
     assert out["jit"][1]["conv3x3"] > 0
+
+
+# ---------------------------------------------------------------------------
+# checkpoint IO on the card (weights/)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_safetensors_reads_straight_to_the_card(dev, tmp_path, dtype):
+    """The port's reader puts BF16 / F16 tensors on the card with the bits
+    the CPU path reads, eagerly and through the lazy reader."""
+    from idmvton_tpu_torch.weights.safetensors import (
+        SafetensorsReader, load_file, save_file,
+    )
+    g = torch.Generator().manual_seed(6)
+    want = {"w": (torch.randn(640, 1920, generator=g) * 3).to(dtype),
+            "b": torch.randn(1920, generator=g).to(dtype),
+            "t": torch.randn(77, 64, generator=g).to(dtype).t()}
+    path = str(tmp_path / "w.safetensors")
+    save_file(want, path)
+    cpu, card = load_file(path), load_file(path, device=dev)
+    with SafetensorsReader(path, device=dev) as r:
+        lazy = {k: r[k] for k in r}
+    for k, w in want.items():
+        for got in (card[k], lazy[k]):
+            assert got.device == dev and got.dtype == dtype
+            assert torch.equal(got.cpu(), cpu[k]) and torch.equal(cpu[k], w)
+
+
+@pytest.fixture
+def fixed_shift_flag():
+    old = cuda_attention._FIXED_SHIFT_FORCED_OFF
+    cuda_attention._FIXED_SHIFT_FORCED_OFF = False
+    yield
+    cuda_attention._FIXED_SHIFT_FORCED_OFF = old
+
+
+def test_calibration_flips_the_switch_and_the_next_capture(dev,
+                                                           fixed_shift_flag):
+    """``calibrate_attention_softmax`` on a stack whose TryonNet down site
+    is hot (q and k columns share one large matrix, as JAX's test builds
+    it) probes every flash-servable site through the kernel, forces the
+    online softmax, and the next captured step holds that in its key and
+    equals the eager step under it; a clean stack restores the fixed
+    shift."""
+    from idmvton_tpu_torch.models.layers import weights_changed_
+    from idmvton_tpu_torch.weights.checkpoint import (
+        calibrate_attention_softmax,
+    )
+    pipe = _step_pipeline(dev, "slice")
+    models = pipe.models
+    inputs = _step_inputs(pipe, dev)
+    with torch.inference_mode():
+        clean = calibrate_attention_softmax(models)
+        assert clean["fixed_shift"] and cuda_attention._fixed_shift()
+        assert set(clean["site_errors"]) == {"unet.down", "unet.mid",
+                                             "garm.down", "garm.mid"}
+        first, _, _ = _replayed_vs_eager(pipe, inputs)
+        kernel = models.unet.down_blocks[1]["attentions"][0].blocks[0] \
+            .attn1.to_qkv.kernel
+        inner = kernel.shape[1] // 3
+        g = torch.Generator(device=dev).manual_seed(7)
+        w_qk = (0.5 * torch.randn(kernel.shape[0], inner, generator=g,
+                                  device=dev)).to(kernel.dtype)
+        kernel[:, :inner].copy_(w_qk)
+        kernel[:, inner:2 * inner].copy_(w_qk)
+        weights_changed_(models.unet)
+        launches = cuda_attention.flash_attention_gemm.launches
+        hot = calibrate_attention_softmax(models)
+        # two launches a site, two more for the worst one
+        assert cuda_attention.flash_attention_gemm.launches - launches == 10
+        assert hot["worst_site"] == "unet.down" and not hot["fixed_shift"]
+        assert not cuda_attention._fixed_shift()
+        steps, got, (want, _) = _replayed_vs_eager(pipe, inputs)
+        assert steps is not first and torch.equal(got, want)
+        (key,) = [k for k, v in pipe.graphs.graphs.items() if v is steps]
+        assert key[-1][0] is False

@@ -123,9 +123,10 @@ def test_config_classes_match_jax():
 
 def test_port_imports_no_jax():
     """Every module of the port, the CLIs and data modules included, imports
-    without JAX, the JAX package, PIL or OpenCV (the card's host may lack
-    the last two: only the functions that read or write files import
-    them)."""
+    without JAX, the JAX package, PIL, OpenCV or the ``safetensors``
+    package (the card's host may lack the last three: only the functions
+    that read or write images import the first two, and the port reads
+    safetensors with its own ``weights/safetensors.py``)."""
     code = ("import importlib, pkgutil, sys\n"
             "import idmvton_tpu_torch as p\n"
             "mods = [m.name for m in pkgutil.walk_packages(\n"
@@ -134,7 +135,7 @@ def test_port_imports_no_jax():
             "    importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules\n"
             "             if k.split('.')[0] in ('jax', 'jaxlib', 'idmvton_tpu',\n"
-            "                                    'PIL', 'cv2'))\n"
+            "                                    'PIL', 'cv2', 'safetensors'))\n"
             "assert not bad, bad\n"
             "assert 'idmvton_tpu_torch.cli.infer' in mods\n"
             "print(len(mods))\n")
