@@ -11,7 +11,8 @@ failure:
 2. build the kernels from ``idmvton_tpu_torch/ops/csrc`` with nvcc;
 3. hold each of the eleven kernel entry points against its plain PyTorch
    version at the shapes its path gives it (bf16; the conv kernels also on
-   the fp32 decode's fp32 activations), and time the kernel, the plain
+   the fp32 decode's and the demo's preprocessing nets' fp32
+   activations), and time the kernel, the plain
    version and, where one PyTorch call computes the same function, that
    call (``library_ms``; the port never makes it), and beside #1, #8 and
    #11 a yardstick that computes part of the function or the same in
@@ -50,6 +51,16 @@ failure:
    BatchLoader, tokenizers and ip_pixels resize) over one in-memory batch
    of 2 synthetic VITON-HD samples on the same stack: uint8 images, the
    bf16 path's kernels and ``flash_attention`` never;
+   6b. the demo server's service (``cli.demo.TryonService``) around the
+   same stack, its three fp32 preprocessing nets from their seeds:
+   OpenPose, SCHP (ATR, LIP) and the DensePose R-CNN each with
+   ``impl="cuda"`` against ``impl="torch"`` at the demo's full-size shapes
+   (maps, logits and label agreement; FPN features, pre-NMS RPN scores,
+   detections matched as sets and their fine labels; each net's conv sites
+   on the kernels exactly, ``DEMO_CONV``), then two requests through
+   ``TryonService.tryon`` (a seeded 768x1024 person and garment, the auto
+   mask, 30 steps, seed 42, "shirt") with each stage's seconds, gated on
+   the images' size and on exact conv launches;
 7. checkpoint IO at full width: export the stack of phases 4-6 through
    the port's exporters (``weights.checkpoint.save_diffusers``) as a bf16
    diffusers tree into a temporary directory (its size and the free space
@@ -165,11 +176,44 @@ PATH_KERNELS = {
     # one VAE conv takes conv3x3_hblock) besides flash_attention
     "tiny": BF16_PATH + ("flash_attention",),
     "decode_fp32": ("conv3x3", "conv3x3_hblock", "gn_spatial_stats"),
+    # the demo request: the preprocessing nets, then one try-on request
+    "demo": BF16_PATH,
     # two jit_generate requests, every step replayed from the captured step
     "graph": BF16_PATH,
 }
 # the replayed step's timing (phase 4): steps a reading
 TIMED_STEPS = 5
+# The demo (phase 6b): the conv kernel sites of each preprocessing net, read
+# from the code (3x3, stride 1, SAME, Cin and Cout >= 128, W >= 8; a site
+# takes conv3x3_hblock from 32 MiB an fp32 image). OpenPose at one scale on
+# its 184x144 input: conv2_2, conv3_1-3_4, conv4_1-4_4_CPM and
+# conv5_{1,2,3}_CPM of both branches, 1 + 4 + 4 + 6 = 15. SCHP (ATR at
+# 512, LIP at 473): the stride-1 undilated bottleneck conv2 of layer2 (3
+# of 4 blocks) and layer3 (22 of 23), and the PSP bottleneck: 26 a net.
+# DensePose at 1088x800: res3-res5's conv2 (4 + 6 + 3), the 4 FPN outputs,
+# the RPN conv on 5 levels, the decoder's 1 + 1 + 2 + 3 and the head's 8
+# over 5 chunks of 20: 69, of which the three at P2 (272x200x256, 53 MiB:
+# the FPN output, the RPN conv, the decoder's P2 conv) take the hblock site
+DEMO_CONV = {"openpose": {"conv3x3": 15}, "atr": {"conv3x3": 26},
+             "lip": {"conv3x3": 26},
+             "densepose": {"conv3x3": 66, "conv3x3_hblock": 3}}
+# the nets' impl="cuda" against impl="torch" (fp32 plain, TF32 off) on the
+# same arrays: bf16 operands at every kernel site against full fp32, so the
+# outputs differ by bf16 rounding random-walked through 15-69 sites. Each
+# bound: (max rel, mean rel) on the continuous outputs, and the agreement
+# rates of the discrete ones from below: SCHP's argmax labels; DensePose's
+# detections matched as sets (the share of the larger run's) and the fine
+# labels of the matched ones. First reading (an H100 80GB HBM3 at 700 W):
+# OpenPose paf 7.2e-3 / 6.3e-3, heat 1.74e-2 / 1.10e-2; SCHP ATR 5.6e-3 /
+# 3.3e-3 (labels 0.9981), LIP 4.3e-3 / 2.6e-3 (0.9998); FPN P2-P6 at most
+# 5.0e-3 / 3.5e-3; pre-NMS RPN scores 3.4e-3 / 1.7e-3; the next run: the
+# same, and 88 of 100 detections matched (near-ties among the random head's
+# saturated scores reorder the rest), their fine labels 0.9979. The bounds
+# sit at about 3x the continuous readings, the rates below them: 0.99 for
+# labels, 0.7 for the detections.
+DEMO_TOLS = {"openpose": (5e-2, 3e-2), "schp": (2e-2, 1e-2),
+             "fpn": (1.5e-2, 1e-2), "rpn_scores": (1e-2, 5e-3),
+             "labels": 0.99, "boxes": 0.7, "fine_labels": 0.99}
 
 
 def fail(msg: str):
@@ -500,7 +544,13 @@ def kernel_cases(dev):
              conv_case(CV.conv3x3, 4, 32, 24, 1280, 1280),
              conv_case(CV.conv3x3, 4, 128, 96, 960, 320),
              # the fp32 decode's 128x96 level
-             conv_case(CV.conv3x3, 2, 128, 96, 512, 512, torch.float32)]),
+             conv_case(CV.conv3x3, 2, 128, 96, 512, 512, torch.float32),
+             # the demo's fp32 preprocessing nets: OpenPose's 23x18 level,
+             # SCHP's layer3 (ATR), the DensePose head's chunk of 20
+             conv_case(CV.conv3x3, 1, 23, 18, 512, 512, torch.float32),
+             conv_case(CV.conv3x3, 1, 23, 18, 128, 128, torch.float32),
+             conv_case(CV.conv3x3, 1, 32, 32, 256, 256, torch.float32),
+             conv_case(CV.conv3x3, 20, 28, 28, 512, 512, torch.float32)]),
         ("conv3x3_hblock", csrc + "conv3x3.cu",
          "idmvton_tpu/ops/pallas_conv.py:187", "F.conv2d (cuDNN)", [
              conv_case(CV.conv3x3_hblock, 6, 1024, 768, 128, 128),
@@ -509,6 +559,9 @@ def kernel_cases(dev):
              conv_case(CV.conv3x3_hblock, 2, 512, 384, 512, 256,
                        torch.float32),
              conv_case(CV.conv3x3_hblock, 2, 1024, 768, 128, 128,
+                       torch.float32),
+             # the demo's DensePose FPN P2 level (fp32)
+             conv_case(CV.conv3x3_hblock, 1, 272, 200, 256, 256,
                        torch.float32)]),
         ("flash_attention_gemm", csrc + "flash_attention_gemm.cu",
          "idmvton_tpu/ops/pallas_attention.py:356", sdpa, [
@@ -1156,6 +1209,201 @@ def check_checkpoint(models, wrappers, cli_images, cli_counts, exact):
     return counts
 
 
+def mean_rel(got, want) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).abs().mean() / want.abs().mean())
+
+
+def check_demo(models, wrappers):
+    """The demo (phase 6b) on the full-width stack: ``cli.demo``'s
+    ``TryonService`` built around it (its three fp32 preprocessing nets
+    from their seeds on the card), each net with ``impl="cuda"`` against
+    ``impl="torch"`` on the demo's arrays at the shapes its host resizes
+    give (each cuda run launching the conv kernels exactly at
+    ``DEMO_CONV``'s sites and nothing else, the torch run none), then two
+    requests through ``TryonService.tryon``: a seeded 768x1024 person and
+    garment, the auto mask, 30 steps, seed 42, ``desc="shirt"``; their
+    launches gated exactly (the nets' sites plus ``CONV_PER_REQUEST``).
+    Returns the requests' launch counts."""
+    import gc
+    import numpy as np
+    import torch
+    from PIL import Image
+    from idmvton_tpu_torch.cli import demo
+    from idmvton_tpu_torch.models.layers import weights_changed_
+    from idmvton_tpu_torch.ops.nms import box_iou, nms_topk
+    from idmvton_tpu_torch.preprocess.densepose.visualize import extract_iuv
+    dev = next(models.unet.parameters()).device
+    t0 = time.perf_counter()
+    svc = demo.TryonService(demo.parse_args(
+        ["--width", str(WIDTH), "--height", str(HEIGHT), "--device",
+         str(dev)]), models=models)
+    torch.cuda.synchronize()
+    log(f"demo: TryonService around the stack, its nets built in "
+        f"{time.perf_counter() - t0:.3f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    # the R-CNN's stem scaled to mean-subtracted pixels (|x| ~ 50): the
+    # init's fan-in scale on them saturates the random heads, whose boxes
+    # then collapse onto the image's border (tests/test_torch_preprocess.py
+    # scales it the same way)
+    stem = svc.densepose.model.backbone.stem.conv.kernel
+    stem.div_(50.0)
+    weights_changed_(svc.densepose.model)
+    rng = np.random.default_rng(SEED + 5)
+    person = rng.integers(0, 256, (HEIGHT, WIDTH, 3), np.uint8)
+    garment = rng.integers(0, 256, (HEIGHT, WIDTH, 3), np.uint8)
+    small = np.asarray(Image.fromarray(person).resize((384, 512)))
+
+    def both(name, run):
+        """run(impl) on both impls (cuda twice: cold, then timed and gated
+        warm); returns {impl: outputs}."""
+        out = {}
+        for impl in ("cuda", "torch", "cuda"):
+            for w in wrappers.values():
+                w.launches = 0
+            t = time.perf_counter()
+            out[impl] = run(impl)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            counts = {k: w.launches for k, w in wrappers.items() if w.launches}
+            want = DEMO_CONV[name] if impl == "cuda" else {}
+            log(f"demo {name} impl={impl}: {secs:.4f} s, launches {counts}")
+            if counts != want:
+                fail(f"demo {name} impl={impl}: launches {counts}, "
+                     f"expected {want}")
+        return out
+
+    def gate(what, got, want, tols):
+        err, rel = errors(got, want)
+        mrel = mean_rel(got, want)
+        log(f"demo {what} cuda vs torch: max |diff| {err:.4g}, max rel "
+            f"{rel:.3e} (tol {tols[0]:g}), mean rel {mrel:.3e} (tol "
+            f"{tols[1]:g})")
+        if not (rel <= tols[0] and mrel <= tols[1]):
+            fail(f"demo {what}: max rel {rel}, mean rel {mrel} above {tols}")
+
+    def agree(what, rate, tol):
+        log(f"demo {what} agreement {rate:.4f} (bound {tol:g})")
+        if not rate >= tol:
+            fail(f"demo {what} agreement {rate} below {tol}")
+
+    # OpenPose at scale 0.5 of boxsize 368 on the 384x512 small image
+    x, _ = svc.openpose.prepare(small[:, :, ::-1], 0.5)
+    log(f"demo openpose input {x.shape}")
+    xt = torch.from_numpy(x).to(dev)
+    out = both("openpose", lambda impl: svc.openpose.net(xt, impl=impl))
+    for i, what in enumerate(("openpose paf", "openpose heat")):
+        gate(what, out["cuda"][i], out["torch"][i], DEMO_TOLS["openpose"])
+
+    # SCHP: ATR at 512, LIP at 473 (the letterboxed small image)
+    for name, size in (("atr", 512), ("lip", 473)):
+        net = getattr(svc.parsing, name)
+        x, _ = svc.parsing.net_input(small, size)
+        xt = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        out = both(name, lambda impl: net(xt, impl=impl)[1])
+        gate(f"{name} fusion logits", out["cuda"], out["torch"],
+             DEMO_TOLS["schp"])
+        agree(f"{name} argmax labels", float(
+            (out["cuda"].argmax(-1) == out["torch"].argmax(-1)).float()
+            .mean()), DEMO_TOLS["labels"])
+
+    # DensePose at short edge 800 of the 768x1024 person
+    bgr, _ = svc.densepose._preprocess(person)
+    log(f"demo densepose input {bgr.shape}")
+    xt = torch.from_numpy(np.ascontiguousarray(bgr[None])).to(dev)
+    rec = {"cuda": {}, "torch": {}}
+    out = both("densepose", lambda impl: svc.densepose.model(
+        xt, impl=impl, record=rec[impl]))
+    for lvl, (a, b) in enumerate(zip(rec["cuda"]["fpn"],
+                                     rec["torch"]["fpn"])):
+        gate(f"densepose FPN P{lvl + 2} {tuple(a.shape)}", a, b,
+             DEMO_TOLS["fpn"])
+    gate("densepose pre-NMS RPN scores", rec["cuda"]["rpn_scores"],
+         rec["torch"]["rpn_scores"], DEMO_TOLS["rpn_scores"])
+    t = time.perf_counter()
+    keep = nms_topk(rec["cuda"]["rpn_boxes"], rec["cuda"]["rpn_scores"],
+                    iou_threshold=0.7, topk=1000)[2]
+    torch.cuda.synchronize()
+    log(f"demo densepose RPN NMS alone: {rec['cuda']['rpn_boxes'].shape[0]} "
+        f"boxes -> {int((keep >= 0).sum())} kept in "
+        f"{time.perf_counter() - t:.4f} s")
+    c, p = out["cuda"], out["torch"]
+    nc, np_ = int(c["valid"].sum()), int(p["valid"].sum())
+    if nc == 0 or np_ == 0:
+        fail(f"demo densepose: no detections (cuda {nc}, torch {np_})")
+    # the random heads score many detections alike, so near-ties order them
+    # differently on the two runs: detections match as sets, one to one,
+    # by IoU > 0.9 or, for a box clipped to a line on the border (no
+    # area), by coordinates within 1% of the input's longer side
+    cb, pb = c["boxes"][c["valid"]], p["boxes"][p["valid"]]
+    iou = box_iou(cb, pb)
+    flat = lambda b: (b[:, 2:] - b[:, :2]).prod(1) <= 0
+    line = flat(cb)[:, None] | flat(pb)[None, :]
+    near = (cb[:, None] - pb[None]).abs().amax(-1) <= 0.01 * max(bgr.shape)
+    close = torch.where(line, near, iou > 0.9).cpu()
+    pairs, taken = [], set()
+    for i in range(len(cb)):
+        for j in torch.nonzero(close[i]).flatten().tolist():
+            if j not in taken:
+                pairs.append((i, j))
+                taken.add(j)
+                break
+    matched_iou = [float(iou[i, j]) for i, j in pairs if not line[i, j]]
+    log(f"demo densepose detections: cuda {nc}, torch {np_}, {len(pairs)} "
+        f"matched ({len(matched_iou)} with area, IoU mean "
+        f"{np.mean(matched_iou) if matched_iou else float('nan'):.4f} min "
+        f"{min(matched_iou) if matched_iou else float('nan'):.4f}; "
+        f"{len(pairs) - len(matched_iou)} clipped to a line)")
+    agree(f"densepose detections ({len(pairs)} of {max(nc, np_)} matched)",
+          len(pairs) / max(nc, np_), DEMO_TOLS["boxes"])
+    if not pairs:
+        fail("demo densepose: no detection matches between the runs")
+    ci, pi = (torch.tensor(v, device=dev) for v in zip(*pairs))
+    lab_c = extract_iuv(c["coarse"], c["fine"], c["u"], c["v"])[0]
+    lab_p = extract_iuv(p["coarse"], p["fine"], p["u"], p["v"])[0]
+    vc = torch.nonzero(c["valid"]).flatten()
+    vp = torch.nonzero(p["valid"]).flatten()
+    agree(f"densepose fine labels ({len(pairs)} matched detections)",
+          float((lab_c[vc[ci]] == lab_p[vp[pi]]).float().mean()),
+          DEMO_TOLS["fine_labels"])
+    del out, rec, c, p, xt
+    torch.cuda.empty_cache()
+
+    # two demo requests
+    exact = {k: CONV_PER_REQUEST[k] + sum(n.get(k, 0)
+                                          for n in DEMO_CONV.values())
+             for k in CONV_PER_REQUEST}
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    for req in range(2):
+        stages = {}
+        t0 = time.perf_counter()
+        result, masked = svc.tryon(Image.fromarray(person),
+                                   Image.fromarray(garment), "shirt",
+                                   auto_mask=True, steps=STEPS, seed=42,
+                                   stage_seconds=stages)
+        secs = time.perf_counter() - t0
+        img, mg = np.asarray(result), np.asarray(masked)
+        log(f"demo request {req}: {secs:.3f} s ("
+            + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+            + f"); result {img.dtype} {img.shape} mean {img.mean():.2f} std "
+            f"{img.std():.2f}; masked preview {mg.shape}")
+        if img.shape != (HEIGHT, WIDTH, 3) or mg.shape != (HEIGHT, WIDTH, 3):
+            fail(f"demo request {req}: images {img.shape}, {mg.shape}")
+        if not img.std() > 0:
+            fail(f"demo request {req}: a constant image")
+    log(f"demo peak memory during the requests: "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    counts = gate_launches(wrappers, "demo",
+                           {k: 2 * n for k, n in exact.items()})
+    # the service's pipeline and its captured steps reference each other
+    del svc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     if not (ROOT / "idmvton_tpu_torch" / "ops" / "csrc").is_dir():
         fail("idmvton_tpu_torch/ not found beside chip_smoke.py: run it from "
@@ -1245,6 +1493,9 @@ def main():
         counts["cli"], cli_images = cli_run(
             args, models, infer.build(args, models), wrappers, "cli",
             exact=cli_exact)
+
+        # -- phase 6b: the demo server's preprocessing and request ---------
+        counts["demo"] = check_demo(models, wrappers)
 
         # -- phase 7: export the stack as a bf16 tree, load it, serve --------
         counts["checkpoint"] = check_checkpoint(

@@ -37,8 +37,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from idmvton_tpu_torch.models.layers import (
-    Linear, Norm, QuantLinear, layer_norm, linear, quantize_linear_int8,
-    weights_changed_,
+    Linear, Norm, QuantLinear, kernel_weight, layer_norm, linear,
+    quantize_linear_int8, weights_changed_,
 )
 from idmvton_tpu_torch.ops.attention import (
     concat_kv_attention, decoupled_ip_attention, sdpa,
@@ -52,7 +52,7 @@ from idmvton_tpu_torch.ops.cuda_norm import (
     fused_layer_norm, ln_linear, ln_linear_i8, ln_linear_supported,
     supports_fused_ln,
 )
-from idmvton_tpu_torch.ops.dispatch import resolve
+from idmvton_tpu_torch.ops.dispatch import narrow, resolve
 
 
 def _split_heads(x, heads: int):
@@ -75,10 +75,15 @@ def _ln_proj(x, norm, proj, *, geglu=False, impl=None):
     w = proj.kernel_i8 if quant else proj.kernel
     if (norm is not None and resolve(impl, x) == "cuda"
             and ln_linear_supported(x, w, geglu=geglu)):
+        # an fp32 stack hands the kernels bf16 x and weights (their
+        # operands), and takes the product back in fp32
         if quant:
-            return ln_linear_i8(x, norm.scale, norm.bias, w,
-                                proj.kernel_scale, proj.bias, geglu=geglu)
-        return ln_linear(x, norm.scale, norm.bias, w, proj.bias, geglu=geglu)
+            return ln_linear_i8(narrow(x), norm.scale, norm.bias, w,
+                                proj.kernel_scale, proj.bias,
+                                geglu=geglu).to(x.dtype)
+        return ln_linear(narrow(x), norm.scale, norm.bias,
+                         kernel_weight(proj), proj.bias,
+                         geglu=geglu).to(x.dtype)
     if norm is not None:
         x = layer_norm(norm, x)
     h = linear(proj.dequantized(x.dtype), x)
@@ -120,10 +125,10 @@ class SelfAttention(nn.Module):
                     raise ValueError(f"garment_feat {tuple(garment_feat.shape)}"
                                      f" is not the cond half of batch {b}")
                 uncond = b // 2
-            out = flash_attention_gemm(qkv, kv_g, heads=heads,
-                                       uncond_rows=uncond,
+            out = flash_attention_gemm(narrow(qkv), narrow(kv_g),
+                                       heads=heads, uncond_rows=uncond,
                                        fixed_shift=_fixed_shift())
-            return linear(self.to_out, out)
+            return linear(self.to_out, out.to(qkv.dtype))
         q = _split_heads(qkv[..., :inner], heads)
         k = _split_heads(qkv[..., inner:2 * inner], heads)
         v = _split_heads(qkv[..., 2 * inner:], heads)
@@ -166,13 +171,16 @@ class CrossAttention(nn.Module):
             q = _ln_proj(x, norm, self.to_q, impl=impl)
             if with_ip:
                 out = cross_attention_small_kv(
-                    q, linear(self.to_kv, context[:, :-ip_num_tokens]),
-                    linear(self.to_kv_ip, context[:, -ip_num_tokens:]),
+                    narrow(q),
+                    narrow(linear(self.to_kv, context[:, :-ip_num_tokens])),
+                    narrow(linear(self.to_kv_ip,
+                                  context[:, -ip_num_tokens:])),
                     heads=heads, ip_scale=ip_scale)
             else:
                 out = cross_attention_small_kv(
-                    q, linear(self.to_kv, context), heads=heads)
-            return linear(self.to_out, out)
+                    narrow(q), narrow(linear(self.to_kv, context)),
+                    heads=heads)
+            return linear(self.to_out, out.to(q.dtype))
         q = _split_heads(_ln_proj(x, norm, self.to_q, impl=impl), heads)
 
         def kv(p, ctx):
@@ -228,7 +236,8 @@ class TransformerBlock(nn.Module):
             # the LN output is the emitted feature, so it cannot fuse into
             # the QKV GEMM; the standalone LN kernel runs here instead
             if resolve(impl, x) == "cuda" and supports_fused_ln(x):
-                h = fused_layer_norm(x, self.norm1.scale, self.norm1.bias)
+                h = fused_layer_norm(narrow(x), self.norm1.scale,
+                                     self.norm1.bias).to(x.dtype)
             else:
                 h = layer_norm(self.norm1, x)
             emitted = h

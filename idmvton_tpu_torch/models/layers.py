@@ -11,7 +11,9 @@ parameters are fp32 as in the JAX package.
 package takes its Pallas kernels; everything else is plain PyTorch.
 ``IDMVTON_CONV_PADACC=1`` swaps the ``conv3x3`` sites (not the
 ``conv3x3_hblock`` ones) to the padded-accumulator kernel, as in JAX. The
-conv kernels take an fp32 x (the VAE's fp32 decode) with the bf16 weights.
+conv kernels take an fp32 x (the VAE's fp32 decode, the preprocessing nets)
+with bf16 weights; an fp32 weight reaches them as its bf16 copy
+(``kernel_weight``), made once per weights version.
 ``QuantLinear`` is the int8 form of ``Linear`` for W8A8 serving.
 """
 
@@ -167,10 +169,18 @@ def reset_parameters_(module: nn.Module, generator: torch.Generator):
             m.reset_own_parameters_(generator)
 
 
+# bumped by every weights_changed_: the bf16 weight copies of
+# kernel_weight are made again after it
+_weights_epoch = 0
+
+
 def weights_changed_(module: nn.Module) -> nn.Module:
     """Marks ``module``'s weights as rewritten or replaced (the loader, an
     in-place quantization): a CUDA graph captured over them
-    (``pipeline.graph``) is captured again."""
+    (``pipeline.graph``) is captured again, and the bf16 copies of
+    ``kernel_weight`` are made again."""
+    global _weights_epoch
+    _weights_epoch += 1
     module.weights_version = getattr(module, "weights_version", 0) + 1
     return module
 
@@ -179,6 +189,24 @@ def weights_version(module: nn.Module) -> int:
     """The sum of ``weights_changed_`` marks over ``module`` and its
     submodules."""
     return sum(getattr(m, "weights_version", 0) for m in module.modules())
+
+
+def kernel_weight(owner: nn.Module) -> torch.Tensor:
+    """``owner.kernel`` as the kernels take a weight: bf16 (their operands
+    are bf16, accumulated in fp32: the TPU kernels' DEFAULT precision). A
+    bf16 weight passes as it is; another type (an fp32 stack, the fp32
+    preprocessing nets) gets a bf16 copy kept on ``owner``, made once per
+    weights version: again after any ``weights_changed_`` or when the
+    weight moves, never at every call."""
+    w = owner.kernel
+    if w.dtype == torch.bfloat16:
+        return w
+    key = (_weights_epoch, w.data_ptr(), w.device)
+    cached = owner.__dict__.get("_kernel_bf16")
+    if cached is None or cached[0] != key:
+        cached = (key, w.detach().to(torch.bfloat16))
+        owner.__dict__["_kernel_bf16"] = cached
+    return cached[1]
 
 
 # ---------------------------------------------------------------------------
@@ -228,7 +256,7 @@ def conv2d(p, x, *, stride: int = 1, padding="SAME", impl=None):
             # the kernels take bf16 weights for a bf16 or an fp32 x (bf16
             # operands, fp32 accumulation: the TPU kernel's DEFAULT
             # precision), so an fp32 x does not upcast them
-            kk = k if x.dtype == torch.float32 else k.to(x.dtype)
+            kk = kernel_weight(p)
             if conv3x3_supported(x, kk):
                 if conv_padacc_enabled():
                     return conv3x3_padacc(x, kk, p.bias)

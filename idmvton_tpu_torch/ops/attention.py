@@ -12,8 +12,9 @@ softmax, probabilities cast to the input type for the PV product.
 
 ``sdpa`` and ``concat_kv_attention`` dispatch as the JAX ops do: the
 ``"cuda"`` impl takes ``cuda_attention.flash_attention`` (which itself
-keeps up to 256 keys on the plain formula, as the JAX kernel wrapper does),
-the ``"torch"`` impl the plain path. The UNets' self-attention reaches the
+keeps up to 256 keys on the plain formula, as the JAX kernel wrapper does;
+above that an fp32 stack hands the kernel bf16 operands), the ``"torch"``
+impl the plain path. The UNets' self-attention reaches the
 kernel where ``flash_attention_gemm`` does not take its head layout; the
 text, vision, Resampler and VAE attention pass ``impl="torch"``, as the JAX
 package passes ``impl="xla"`` there. ``decoupled_ip_attention`` (77 + 16
@@ -26,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from idmvton_tpu_torch.ops.dispatch import resolve
+from idmvton_tpu_torch.ops.dispatch import narrow, resolve
 
 
 def softmax_(x):
@@ -53,7 +54,12 @@ def sdpa(q, k, v, *, scale: Optional[float] = None,
          impl: Optional[str] = None):
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if resolve(impl, q) == "cuda":
-        from idmvton_tpu_torch.ops.cuda_attention import flash_attention
+        from idmvton_tpu_torch.ops.cuda_attention import (
+            XLA_KV_CUTOFF, flash_attention,
+        )
+        if k.shape[1] > XLA_KV_CUTOFF:   # the kernel: bf16 operands
+            return flash_attention(narrow(q), narrow(k), narrow(v),
+                                   scale=scale).to(q.dtype)
         return flash_attention(q, k, v, scale=scale)
     return attend(q, k, v, scale)
 
@@ -66,8 +72,12 @@ def concat_kv_attention(q, k, v, k_ref, v_ref, *,
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if resolve(impl, q) == "cuda":
         from idmvton_tpu_torch.ops.cuda_attention import (
-            flash_attention_concat_kv,
+            XLA_KV_CUTOFF, flash_attention_concat_kv,
         )
+        if k.shape[1] + k_ref.shape[1] > XLA_KV_CUTOFF:   # the kernel
+            return flash_attention_concat_kv(
+                *(narrow(t) for t in (q, k, v, k_ref, v_ref)),
+                scale=scale).to(q.dtype)
         return flash_attention_concat_kv(q, k, v, k_ref, v_ref, scale=scale)
     return attend(q, torch.cat([k, k_ref], 1), torch.cat([v, v_ref], 1),
                   scale)

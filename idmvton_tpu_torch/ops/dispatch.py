@@ -14,6 +14,16 @@ import torch
 IMPLS = ("torch", "cuda")
 
 
+def narrow(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """An activation as a bf16-operand kernel takes it: an fp32 tensor
+    narrowed to bf16 (the TPU kernels' DEFAULT precision rounds their
+    operands to bf16 too, and accumulates in fp32), any other as it is (the
+    wrapper checks its type). The site widens the result back."""
+    if t is not None and t.dtype == torch.float32:
+        return t.bfloat16()
+    return t
+
+
 def resolve(impl: Optional[str], x: torch.Tensor) -> str:
     if impl is None:
         return "cuda" if x.is_cuda else "torch"

@@ -10,7 +10,9 @@ to the parameter's type. Every parameter of the module must be filled, and
 every leaf of the tree must find its parameter. A model quantized
 beforehand (``models.attention.quantize_unet_linears_int8``) takes a JAX tree
 quantized the same way: its ``kernel_i8`` / ``kernel_scale`` leaves fill
-the ``QuantLinear`` parameters as they are, under the same checks.
+the ``QuantLinear`` parameters as they are, under the same checks. The
+preprocessing nets (OpenPose, the two SCHP nets, the DensePose R-CNN) take
+JAX's trees the same way (``load_preprocess_params``).
 """
 
 from __future__ import annotations
@@ -78,3 +80,14 @@ def load_jax_params(models: TryonModels, tree: dict) -> TryonModels:
     for name in COMPONENTS:
         load_module_params(getattr(models, name), tree[name])
     return models
+
+
+def load_preprocess_params(openpose, parsing, densepose, tree: dict):
+    """Fills the nets of the ``OpenPose``, ``Parsing`` and ``DensePose``
+    wrappers in place from ``tree``: {"openpose", "atr", "lip",
+    "densepose"} -> JAX's ``init_openpose``, ``init_schp`` (ATR, LIP) and
+    ``init_densepose_rcnn`` trees."""
+    load_module_params(openpose.net, tree["openpose"])
+    load_module_params(parsing.atr, tree["atr"])
+    load_module_params(parsing.lip, tree["lip"])
+    load_module_params(densepose.model, tree["densepose"])

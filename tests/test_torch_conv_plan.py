@@ -149,12 +149,32 @@ def test_plan_picks_by_shape_and_rejects_what_the_kernel_cannot_take():
 
 # the fp32 decode's conv shapes (VAEConfig.force_upcast, decoder B=2)
 VAE_DEC = [(2,) + s for s in VAE if s[0] <= 1024]
+# the demo's preprocessing nets (fp32): every conv site the kernels take.
+# OpenPose on the 184x144 input (the 384x512 person at scale 0.5 of
+# boxsize 368, padded to the stride): conv2_2 at 92x72, conv3_* at 46x36,
+# conv4_* and conv5_{1,2,3}_CPM_* at 23x18. SCHP's undilated stride-1
+# bottleneck conv2 (layer2, layer3) and the PSP bottleneck, ATR at 512 and
+# LIP at 473. DensePose at 1088x800 (the 1024x768 person at short edge
+# 800, padded to 32): res3-res5's conv2, the FPN outputs, the RPN conv on
+# P2-P6, the decoder's convs, the head's 8 convs over chunks of 20
+PREPROCESS = [
+    (1, 92, 72, 128, 128), (1, 46, 36, 128, 256), (1, 46, 36, 256, 256),
+    (1, 23, 18, 256, 512), (1, 23, 18, 512, 512), (1, 23, 18, 512, 256),
+    (1, 23, 18, 256, 128), (1, 23, 18, 128, 128),
+    (1, 64, 64, 128, 128), (1, 32, 32, 256, 256), (1, 32, 32, 4096, 512),
+    (1, 60, 60, 128, 128), (1, 30, 30, 256, 256), (1, 30, 30, 4096, 512),
+    (1, 136, 100, 128, 128), (1, 68, 50, 256, 256), (1, 34, 25, 512, 512),
+    (1, 272, 200, 256, 256), (1, 136, 100, 256, 256), (1, 68, 50, 256, 256),
+    (1, 34, 25, 256, 256), (1, 17, 13, 256, 256),
+    (20, 28, 28, 256, 512), (20, 28, 28, 512, 512)]
 
 
-@pytest.mark.parametrize("shape", VAE_DEC + ODD)
+@pytest.mark.parametrize("shape", VAE_DEC + ODD + PREPROCESS)
 def test_fp32_plan_covers_decode_shapes(shape):
     """An fp32 x: BM = 128 tiles only (two stages of its raw 256-byte A rows
-    fit), the x box unswizzled with 4-byte strides; coverage as bf16."""
+    fit), the x box unswizzled with 4-byte strides; coverage as bf16. The
+    fp32 decode's shapes, the odd ones and the preprocessing nets' (small,
+    odd levels such as 23x18, 34x25 and 17x13; the head's batch of 20)."""
     b, h, w, cin, cout = shape
     plan = conv_plan(*shape, f32=True)
     assert (plan.bm, plan.bn) in cuda_conv.F32_TILES
@@ -187,6 +207,17 @@ def test_fp32_predicates_route_the_decode():
     for x in (mid, big):
         assert not cuda_conv.conv3x3_supported(x, k)
         assert cuda_conv.conv3x3_hblock_supported(x, k)
+
+
+def test_preprocess_sites_route_to_the_kernels():
+    """Every preprocessing conv site qualifies on an fp32 x and bf16
+    weights; only the three at DensePose's P2 level (272x200x256 fp32,
+    53 MiB) take conv3x3_hblock."""
+    for b, h, w, cin, cout in PREPROCESS:
+        x = torch.empty(b, h, w, cin, device="meta")
+        k = torch.empty(3, 3, cin, cout, dtype=torch.bfloat16, device="meta")
+        assert cuda_conv.conv3x3_hblock_supported(x, k)
+        assert cuda_conv.conv3x3_supported(x, k) == ((h, w) != (272, 200))
 
 
 def test_predicates_accept_what_they_did():
@@ -308,6 +339,27 @@ def test_halo_boxes_match_conv3x3_torch(shape, tile):
     w = _np(5, 3, 3, cin, cout, scale=(9 * cin) ** -0.5)
     bias = _np(6, cout)
     got = kernel_np(x, w, bias, conv_plan(*shape, tile=tile), padded=False)
+    want = cuda_conv.conv3x3_torch(torch.from_numpy(x), torch.from_numpy(w),
+                                   torch.from_numpy(bias)).numpy()
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
+
+
+# the preprocessing levels' spatial shapes and the head's batch of 20, at
+# 128 channels (the tile plan does not depend on Cin past one K chunk)
+PRE_NP = [(1, 23, 18, 128, 128), (1, 34, 25, 128, 128),
+          (1, 17, 13, 128, 256), (20, 28, 28, 128, 128)]
+
+
+@pytest.mark.parametrize("f32", [False, True])
+@pytest.mark.parametrize("shape", PRE_NP)
+def test_halo_boxes_at_preprocess_shapes(shape, f32):
+    """The halo kernel's loop through the plan of an fp32 (or bf16) x at
+    the preprocessing nets' odd levels and the head's batch of 20."""
+    b, h, wd, cin, cout = shape
+    x = _np(7, b, h, wd, cin)
+    w = _np(8, 3, 3, cin, cout, scale=(9 * cin) ** -0.5)
+    bias = _np(9, cout)
+    got = kernel_np(x, w, bias, conv_plan(*shape, f32=f32), padded=False)
     want = cuda_conv.conv3x3_torch(torch.from_numpy(x), torch.from_numpy(w),
                                    torch.from_numpy(bias)).numpy()
     np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)

@@ -872,3 +872,163 @@ def test_calibration_flips_the_switch_and_the_next_capture(dev,
         assert steps is not first and torch.equal(got, want)
         (key,) = [k for k, v in pipe.graphs.graphs.items() if v is steps]
         assert key[-1][0] is False
+
+
+# ---------------------------------------------------------------------------
+# fp32 weights at the kernel sites: the preprocessing nets and an fp32 stack
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", [
+    (1, 23, 18, 512, 512), (1, 23, 18, 128, 128), (1, 32, 32, 256, 256),
+    (1, 34, 25, 256, 256), (20, 28, 28, 512, 512)])
+def test_conv_site_takes_fp32_weights(dev, b, h, w, cin, cout):
+    """``layers.conv2d`` on an fp32 x and an fp32 ``Conv`` (the OpenPose,
+    SCHP and DensePose sites) launches the conv kernel with a bf16 copy of
+    the weight, made once per weights version: within the bf16 bound of the
+    fp32 plain version and within F32_TOL of the plain version on the
+    bf16-rounded x and weight. New weights (``weights_changed_``) give a
+    new copy."""
+    from idmvton_tpu_torch.models.layers import (
+        Conv, conv2d, reset_parameters_, weights_changed_,
+    )
+    g = torch.Generator(device=dev).manual_seed(21)
+    conv = Conv(cin, cout, dtype=torch.float32, device=dev)
+    reset_parameters_(conv, g)
+    conv.bias.copy_(_randn(g, cout, dev=dev, dtype=torch.float32) * 0.1)
+    x = _randn(g, b, h, w, cin, dev=dev, dtype=torch.float32)
+    before = cuda_conv.conv3x3.launches + cuda_conv.conv3x3_hblock.launches
+    got = conv2d(conv, x, impl="cuda")
+    again = conv2d(conv, x, impl="cuda")
+    want = conv2d(conv, x, impl="torch")
+    want_r = cuda_conv.conv3x3_torch(x.bfloat16().float(),
+                                     conv.kernel.bfloat16().float(),
+                                     conv.bias)
+    torch.cuda.synchronize()
+    assert (cuda_conv.conv3x3.launches + cuda_conv.conv3x3_hblock.launches
+            == before + 2)
+    assert got.dtype == torch.float32 and got.shape == (b, h, w, cout)
+    assert torch.equal(got, again)
+    assert _rel_err(got, want) <= BF16_TOL
+    assert _rel_err(got, want_r) <= F32_TOL
+    with torch.no_grad():
+        conv.kernel.mul_(-1.0)
+    weights_changed_(conv)
+    assert _rel_err(conv2d(conv, x, impl="cuda"), -want_r
+                    + 2 * conv.bias) <= F32_TOL
+
+
+def test_fp32_tiny_step_reaches_the_kernels(dev):
+    """The tiny stack in fp32 (the CLIs' ``--dtype float32``): one denoise
+    step with ``impl="cuda"`` launches the conv, ln_linear and attention
+    kernels (each site hands its kernel bf16 operands: the activations
+    narrowed, the weights' bf16 copy) and stays within 2e-2 mean rel of the
+    fp32 plain step on the guided noise prediction and the latent."""
+    from idmvton_tpu_torch.diffusion.scheduler import (
+        classifier_free_guidance,
+    )
+    from idmvton_tpu_torch.pipeline.graph import launch_counters
+    from idmvton_tpu_torch.pipeline.tryon import TryonModels, TryonPipeline
+    models = TryonModels.init(0, tiny=True, device=dev, dtype=torch.float32)
+    pipe = TryonPipeline(models)
+    inputs = {k: v.float() if v.is_floating_point() else v
+              for k, v in _step_inputs(pipe, dev, h=512, w=384).items()}
+    counters = launch_counters()
+    out = {}
+    hook = models.unet.register_forward_hook(
+        lambda mod, args, res: out.update(unet=res[0]))
+    try:
+        with torch.inference_mode():
+            g = torch.Generator(device=dev).manual_seed(4)
+            cond = pipe.staged_encoder()(g, inputs)
+            lat = torch.randn(2, 64, 48, 4, generator=g, device=dev)
+            noise = torch.randn(lat.shape, generator=g, device=dev)
+            ts, prev = pipe.scheduler.timesteps_and_prev(30)
+            for impl in ("cuda", "torch"):
+                for f in counters.values():
+                    f.launches = 0
+                latent = pipe.denoise_step(cond, lat, int(ts[3]),
+                                           int(prev[3]), step_noise=noise,
+                                           impl=impl)
+                pred = classifier_free_guidance(*out.pop("unet").chunk(2),
+                                                2.0)
+                out[impl] = (latent, pred,
+                             {k: f.launches for k, f in counters.items()})
+    finally:
+        hook.remove()
+    launches = out["cuda"][2]
+    assert not any(out["torch"][2].values()), out["torch"][2]
+    for k in ("conv3x3", "ln_linear", "flash_attention_gemm",
+              "flash_attention", "gn_spatial_stats"):
+        assert launches[k] > 0, launches
+    for i in (0, 1):
+        got, want = out["cuda"][i], out["torch"][i]
+        assert got.dtype == torch.float32
+        assert torch.isfinite(got).all()
+        mean_rel = float((got - want).abs().mean() / want.abs().mean())
+        assert mean_rel <= 2e-2, (i, mean_rel)
+
+
+# the demo's preprocessing conv sites (fp32 x): OpenPose's 92x72 / 46x36 /
+# 23x18 levels, SCHP's layer2 / layer3 / PSP bottleneck at 512 and 473,
+# DensePose's res3-res5, FPN / RPN levels (P2 272x200 takes the hblock
+# site) and the head's batch of 20 (tests/test_torch_conv_plan.py's
+# PREPROCESS, which imports JAX)
+PREPROCESS_CONVS = [
+    (1, 92, 72, 128, 128), (1, 46, 36, 128, 256), (1, 46, 36, 256, 256),
+    (1, 23, 18, 256, 512), (1, 23, 18, 512, 512), (1, 23, 18, 512, 256),
+    (1, 23, 18, 256, 128), (1, 23, 18, 128, 128),
+    (1, 64, 64, 128, 128), (1, 32, 32, 256, 256), (1, 32, 32, 4096, 512),
+    (1, 60, 60, 128, 128), (1, 30, 30, 256, 256), (1, 30, 30, 4096, 512),
+    (1, 136, 100, 128, 128), (1, 68, 50, 256, 256), (1, 34, 25, 512, 512),
+    (1, 272, 200, 256, 256), (1, 136, 100, 256, 256), (1, 68, 50, 256, 256),
+    (1, 34, 25, 256, 256), (1, 17, 13, 256, 256),
+    (20, 28, 28, 256, 512), (20, 28, 28, 512, 512)]
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", PREPROCESS_CONVS)
+def test_conv3x3_kernel_preprocess_shapes(dev, b, h, w, cin, cout):
+    """Each preprocessing conv shape through the wrapper its site takes, on
+    an fp32 x and bf16 weights: against the fp32 plain version (the bf16
+    bound) and the plain version on the bf16-rounded x (F32_TOL)."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    x = _randn(g, b, h, w, cin, dev=dev, dtype=torch.float32)
+    k = _randn(g, 3, 3, cin, cout, dev=dev, scale=(9 * cin) ** -0.5)
+    bb = _randn(g, cout, dev=dev, dtype=torch.float32)
+    fn = (cuda_conv.conv3x3 if cuda_conv.conv3x3_supported(x, k)
+          else cuda_conv.conv3x3_hblock)
+    assert (fn is cuda_conv.conv3x3_hblock) == ((h, w) == (272, 200))
+    before = fn.launches
+    got = fn(x, k, bb)
+    want = cuda_conv.conv3x3_torch(x, k, bb)
+    want_r = cuda_conv.conv3x3_torch(x.bfloat16().float(), k, bb)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (b, h, w, cout)
+    assert _rel_err(got, want) <= BF16_TOL
+    assert _rel_err(got, want_r) <= F32_TOL
+
+
+@pytest.mark.parametrize("n,thr,score_thr,topk", [
+    (5000, 0.7, float("-inf"), 1000), (1000, 0.5, 0.05, 100),
+    (60, 0.5, float("-inf"), 100)])
+def test_nms_on_the_card_equals_the_cpu(dev, n, thr, score_thr, topk):
+    """``nms_topk`` on CUDA boxes (the IoU matrix on the card, the scan on
+    the host) equals the CPU run on the same boxes: keeps, order, boxes,
+    scores (the RPN's 5 levels x 1000 and the box head's 1000 -> 100).
+    Both compute each IoU with the same fp32 operations; a pair within one
+    ulp of the threshold could still flip, which these boxes do not have."""
+    from idmvton_tpu_torch.ops.nms import nms_topk
+    g = torch.Generator().manual_seed(23)
+    ctr = torch.rand(n, 2, generator=g) * 800
+    size = torch.rand(n, 2, generator=g) * 200 + 8
+    boxes = torch.cat([ctr - size / 2, ctr + size / 2], 1)
+    scores = torch.rand(n, generator=g)
+    scores[1::7] = scores[::7][:scores[1::7].shape[0]]   # ties
+    kw = dict(iou_threshold=thr, score_threshold=score_thr, topk=topk)
+    want = nms_topk(boxes, scores, **kw)
+    got = nms_topk(boxes.to(dev), scores.to(dev), **kw)
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda"
+        assert torch.equal(a.cpu(), b)
+    assert (want[2] >= 0).sum() > 1

@@ -115,7 +115,11 @@ def test_cross_attention_module_small_kv_branch_matches_jax(monkeypatch,
     impl="pallas" (LN + to_q kernel, small-KV kernel, interpret); here the
     kernel wrappers are stood in for by their plain versions. The torch impl
     ignores the switch and matches JAX's impl="xla", as does the CUDA impl
-    with the switch off."""
+    with the switch off. The CUDA impl hands the fp32 module's kernels their
+    contract, bf16 operands (the TPU kernels' DEFAULT precision; JAX's
+    interpret mode keeps fp32): every stand-in call gets bf16 tensors, and
+    the result holds to JAX's within the bf16 bound of the card tests, max
+    |diff| <= 2e-2 * max |JAX| (the torch impl within 2e-4)."""
     monkeypatch.setenv("IDMVTON_CROSS_KERNEL", switch)
     heads, d = 2, 64
     inner = heads * d
@@ -131,18 +135,38 @@ def test_cross_attention_module_small_kv_branch_matches_jax(monkeypatch,
                        ip_adapter=True, **F32), jax.tree.map(np.asarray, jp))
     norm = load_module_params(tlayers.Norm(inner, device="cpu"),
                               jax.tree.map(np.asarray, jn))
-    spy = _Spy(cuda_attention.cross_attention_small_kv_torch)
+    operands = []   # the dtypes of the stand-ins' operand tensors
+
+    def small_kv(q, kv, kv_ip=None, **kw):
+        operands.extend(t.dtype for t in (q, kv, kv_ip))
+        return cuda_attention.cross_attention_small_kv_torch(q, kv, kv_ip,
+                                                             **kw)
+
+    def ln_linear(x, gamma, beta, w, *rest, **kw):
+        operands.extend((x.dtype, w.dtype))   # gamma, beta stay fp32
+        return cuda_norm.ln_linear_torch(x, gamma, beta, w, *rest, **kw)
+
+    spy = _Spy(small_kv)
     monkeypatch.setattr(tattention, "cross_attention_small_kv", spy)
-    monkeypatch.setattr(tattention, "ln_linear", cuda_norm.ln_linear_torch)
+    monkeypatch.setattr(tattention, "ln_linear", ln_linear)
     for impl, jimpl, calls in (("cuda", "pallas", int(switch == "1")),
                                ("torch", "xla", 0)):
         want = jatt.cross_attention(jp, jnp.asarray(x), jnp.asarray(ctx),
                                     norm=jn, impl=jimpl, **kw)
         spy.calls = 0
+        operands.clear()
         got = mod(_t(x), _t(ctx), ip_num_tokens=16, ip_scale=0.6, norm=norm,
                   impl=impl)
         assert spy.calls == calls, impl
-        _close(got, want, tol=2e-4)
+        assert got.dtype == torch.float32
+        if impl == "torch":
+            assert not operands
+            _close(got, want, tol=2e-4)
+            continue
+        assert len(operands) == 2 + 3 * calls
+        assert set(operands) == {torch.bfloat16}, operands
+        err = float(np.abs(got.numpy() - np.asarray(want)).max())
+        assert err <= 2e-2 * float(np.abs(np.asarray(want)).max())
 
 
 # ---------------------------------------------------------------------------
@@ -172,7 +196,8 @@ def test_conv3x3_plain_matches_pallas_padacc(monkeypatch, shape, cout, bias):
 def test_conv2d_routes_conv3x3_sites_to_padacc(monkeypatch, switch):
     """On the CUDA impl the switch swaps the conv3x3 sites, and only them,
     to conv3x3_padacc (as JAX swaps the kernel inside conv3x3); the
-    conv3x3_hblock sites and the torch impl are unchanged."""
+    conv3x3_hblock sites and the torch impl are unchanged. The CUDA impl
+    hands the kernels the fp32 weight's bf16 copy (their operand type)."""
     monkeypatch.setenv("IDMVTON_CONV_PADACC", switch)
     calls = []
     for name in ("conv3x3", "conv3x3_padacc", "conv3x3_hblock"):
@@ -183,7 +208,9 @@ def test_conv2d_routes_conv3x3_sites_to_padacc(monkeypatch, switch):
     small = _t(_np(10, 1, 8, 8, 128))
     big = torch.zeros(1, 256, 256, 128)  # 32 MiB per image: the hblock rule
     want = cuda_conv.conv3x3_torch(small, conv.kernel, conv.bias)
-    assert torch.equal(tlayers.conv2d(conv, small, impl="cuda"), want)
+    want_kernel = cuda_conv.conv3x3_torch(small, conv.kernel.bfloat16(),
+                                          conv.bias)
+    assert torch.equal(tlayers.conv2d(conv, small, impl="cuda"), want_kernel)
     tlayers.conv2d(conv, big, impl="cuda")
     assert torch.equal(tlayers.conv2d(conv, small), want)
     first = "conv3x3_padacc" if switch == "1" else "conv3x3"
@@ -227,7 +254,7 @@ def test_quantized_sites_reach_the_w8a8_kernel(monkeypatch):
     plain.proj_in.kernel.copy_(ff.proj_in.dequantized(torch.float32).kernel)
     plain.proj_in.bias.copy_(ff.proj_in.bias)
     ff(x, norm=norm, impl="cuda")
-    assert seen == [("ln_linear", torch.float32, True),
+    assert seen == [("ln_linear", torch.bfloat16, True),
                     ("ln_linear_i8", torch.int8, True)]
     _close(ff(x, norm=norm), plain(x, norm=norm), tol=1e-6)
 
