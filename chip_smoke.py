@@ -88,12 +88,31 @@ failure:
    the launch counters, zeroed before each serving phase and read after
    it, show that each path launched every kernel it runs and no other, and
    each conv kernel exactly once a conv site of the path;
-10. print a JSON line with each kernel's result, then the device line.
+10. training, outside inference mode: (a) each kernel with an autograd
+   Function (``ops.autograd``: #1-#9, #11) at its phase-3 shapes, the
+   gradient of every input through the Function against plain autograd's
+   (``backward`` in the kernels line, forward + backward timed both
+   ways); (b) the full-width ``sdxl_tryon`` TryonNet and the Resampler as
+   fp32 masters (adamw, bf16 compute, remat) beside the phase-4 stack's
+   frozen towers with random biases and norm affines, batch 1 at
+   768x1024, ``SchedulerConfig.train()``: one step's loss, gradient norm,
+   noise prediction and five leaves' gradients ``impl="cuda"`` against
+   ``impl="torch"`` (``TRAIN_TOLS``), then three adamw steps through
+   ``make_train_step`` on the card: each finite, moving the masters,
+   launching exactly its forward's kernels plus the rematerialized blocks'
+   once more (no kernel in a backward; #9-#11 never), the forward before
+   steps 2 and 3 held cuda against torch on the updated masters; seconds a
+   step, img/s and peak memory beside the card's name and power limit;
+   (c) ``cli.train.main --micro`` on a synthetic VITON-HD tree: 2
+   optimizer steps of 2 micro-batches, checkpoints, eval images, then a
+   resumed run to step 3;
+11. print a JSON line with each kernel's result, then the device line.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -180,6 +199,12 @@ PATH_KERNELS = {
     "demo": BF16_PATH,
     # two jit_generate requests, every step replayed from the captured step
     "graph": BF16_PATH,
+    # three full-width train steps: the frozen towers and TryonNet's forward
+    # (GarmentNet's emit LayerNorm, the VAE encode's large levels), no
+    # kernel in a backward
+    "train": BF16_PATH,
+    # cli/train.py --micro at TRAIN_CLI_SIZE, two runs (train, resume)
+    "train_cli": ("conv3x3", "gn_spatial_stats", "flash_attention"),
 }
 # the replayed step's timing (phase 4): steps a reading
 TIMED_STEPS = 5
@@ -318,11 +343,14 @@ def kernel_cases(dev):
     ``library`` (one PyTorch call computing the same function on the same
     inputs, timed beside the kernel and used nowhere in the port, or None)
     and optionally ``vs`` (another function to hold the kernel against
-    without a gate), ``time`` (one to time beside it) or ``exps`` (the
+    without a gate), ``time`` (one to time beside it), ``exps`` (the
     exponentials an attention kernel takes: its logits, for the exp
-    floor)."""
+    floor) or ``vjp`` (the kernel's autograd entry, its inputs and
+    keywords, and the plain function whose autograd it is held to: the
+    train phase's gradient check)."""
     import torch
     import torch.nn.functional as F
+    from idmvton_tpu_torch.ops import autograd as AG
     from idmvton_tpu_torch.ops import cuda_attention as A
     from idmvton_tpu_torch.ops import cuda_conv as CV
     from idmvton_tpu_torch.ops import cuda_norm as N
@@ -357,7 +385,9 @@ def kernel_cases(dev):
                     lambda: N.ln_linear_torch(x, gam, bet, w, b, geglu=geglu),
                     [x, gam, bet, w, b], 2 * x.numel() * w.shape[1],
                     time=("layer_norm+mm", lambda: torch.mm(
-                        F.layer_norm(x2, (c,), g16, b16, 1e-5), w)))
+                        F.layer_norm(x2, (c,), g16, b16, 1e-5), w)),
+                    vjp=(AG.ln_linear, (x, gam, bet, w, b),
+                         {"geglu": geglu}, N.ln_linear_torch))
 
     def ln_i8_case(m_shape, c, n, geglu, bias):
         """As the variant path calls it: to_qkv has no bias, ff.proj_in a
@@ -381,7 +411,14 @@ def kernel_cases(dev):
                     vs=("bf16 ln_linear_torch",
                         lambda: N.ln_linear_torch(x, gam, bet, w, b,
                                                   geglu=geglu)),
-                    time=("int_mm", lambda: torch._int_mm(codes, w_i8)))
+                    time=("int_mm", lambda: torch._int_mm(codes, w_i8)),
+                    # JAX's VJP: the product on the dequantized weight
+                    vjp=(AG.ln_linear_i8, (x, gam, bet, w_i8, w_scale, b),
+                         {"geglu": geglu},
+                         lambda x_, g_, be_, wi, ws, b_, geglu: (
+                             N.ln_linear_torch(x_, g_, be_, (
+                                 wi.float() * ws[None]).to(x_.dtype), b_,
+                                 geglu=geglu)), (0, 1, 2, 5)))
 
     def cross_case(b, n, heads, ip):
         """Beside it, the two-call yardstick: F.scaled_dot_product_attention
@@ -411,7 +448,10 @@ def kernel_cases(dev):
                     lambda: A.cross_attention_small_kv_torch(q, kv, kv_ip,
                                                              heads=heads),
                     [q, kv, kv_ip], 4 * b * n * hd * ctx,
-                    exps=b * heads * n * ctx, time=("sdpa_sum", two))
+                    exps=b * heads * n * ctx, time=("sdpa_sum", two),
+                    vjp=(AG.cross_attention_small_kv, (q, kv, kv_ip),
+                         {"heads": heads},
+                         A.cross_attention_small_kv_torch))
 
     def lnorm_case(shape):
         x = rn(*shape)
@@ -421,13 +461,17 @@ def kernel_cases(dev):
                     lambda: N.layer_norm_torch(x, s, b), [x, s, b],
                     8 * x.numel(), rate="fp32",
                     library=lambda: F.layer_norm(x, (shape[-1],), s16, b16,
-                                                 1e-5))
+                                                 1e-5),
+                    vjp=(AG.fused_layer_norm, (x, s, b), {},
+                         N.layer_norm_torch))
 
     def gn_case(shape):
         x = rn(*shape) + 0.2
         return case(f"x{shape}", lambda: N.gn_spatial_stats(x),
                     lambda: N.gn_spatial_stats_torch(x), [x],
-                    3 * x.numel(), rate="fp32", tol="gn")
+                    3 * x.numel(), rate="fp32", tol="gn",
+                    vjp=(AG.gn_spatial_stats, (x,), {},
+                         N.gn_spatial_stats_torch))
 
     def conv_case(fn, b, h, w, cin, cout, dtype=torch.bfloat16):
         """bf16, or an fp32 x with the bf16 weights (the fp32 decode):
@@ -443,11 +487,14 @@ def kernel_cases(dev):
         extra = ({"time": ("conv3x3", lambda: CV.conv3x3(x, k, bias))}
                  if fn is CV.conv3x3_padacc else {})
         fp32 = " fp32" if dtype == torch.float32 else ""
+        entry = {CV.conv3x3: AG.conv3x3, CV.conv3x3_hblock:
+                 AG.conv3x3_hblock, CV.conv3x3_padacc: AG.conv3x3_padacc}[fn]
         return case(f"x{(b, h, w, cin)}{fp32} -> {cout}",
                     lambda: fn(x, k, bias),
                     lambda: CV.conv3x3_torch(x, k, bias), [x, k, bias],
                     2 * b * h * w * 9 * cin * cout,
                     library=lambda: F.conv2d(xc, kc, bc, padding=1),
+                    vjp=(entry, (x, k, bias), {}, CV.conv3x3_torch),
                     **extra)
 
     def flash_gemm_case(b, n, heads, garment, uncond, d=64):
@@ -470,7 +517,10 @@ def kernel_cases(dev):
                                                          uncond_rows=uncond),
                     [qkv, kv], 4 * heads * d * n * keys,
                     exps=heads * n * keys,
-                    library=lambda: F.scaled_dot_product_attention(q, k, v))
+                    library=lambda: F.scaled_dot_product_attention(q, k, v),
+                    vjp=(AG.flash_attention_gemm, (qkv, kv),
+                         {"heads": heads, "uncond_rows": uncond},
+                         A.flash_attention_gemm_torch))
 
     def flash_case(b, n, heads, d, m):
         """The split-heads views of a to_qkv output (row stride 3*H*D) over
@@ -486,16 +536,21 @@ def kernel_cases(dev):
             plain = lambda: A.flash_attention_concat_kv_torch(q, k, v, kg, vg)
             ins = [qkv, kg, vg]
             kt, vt = bhsd(torch.cat([k, kg], 1)), bhsd(torch.cat([v, vg], 1))
+            vjp = (AG.flash_attention_concat_kv, (q, k, v, kg, vg), {},
+                   A.flash_attention_concat_kv_torch)
         else:
             kern = lambda: A.flash_attention(q, k, v)
             plain = lambda: A.flash_attention_torch(q, k, v)
             ins, kt, vt = [qkv], bhsd(k), bhsd(v)
+            vjp = (AG.flash_attention, (q, k, v), {},
+                   A.flash_attention_torch)
         qt = bhsd(q)
         return case(f"q{(b, n, heads, d)} over {n + m} keys"
                     f"{' (concat KV)' if m else ''}", kern, plain, ins,
                     4 * b * heads * n * (n + m) * d,
                     exps=b * heads * n * (n + m),
-                    library=lambda: F.scaled_dot_product_attention(qt, kt, vt))
+                    library=lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                    vjp=vjp)
 
     def fused_case(b, st, heads, d, s_own):
         qkv = rn(b, st, 3, heads, d)
@@ -1404,6 +1459,387 @@ def check_demo(models, wrappers):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training
+# ---------------------------------------------------------------------------
+
+# One full-width training step, impl="cuda" against impl="torch" on the
+# same masters and batch (the UNets' sites; the frozen VAE encode takes no
+# impl, as JAX's vae_encode, so both run its kernels): (max rel, mean rel)
+# bounds as STEP_TOLS's, on TryonNet's noise prediction and on the
+# gradients of five leaves, and relative bounds on the loss and the global
+# gradient norm. The backward is the plain VJP on both sides, so the
+# gradients differ only by where the forward rounded. First reading (an
+# H100 80GB HBM3 at 700 W, random biases and norm affines): noise
+# prediction max rel 1.93e-2, mean rel 7.3e-3 at the first step, 3.70e-2 /
+# 2.35e-2 before the second (after Adam's first step, a sign step of lr on
+# every weight, the prediction shrinks: the loss falls from 1.91 to 1.11)
+# and 1.42e-2 / 4.6e-3 before the third; the five leaves' gradients max
+# rel 4.1e-3 to 7.6e-3, mean rel 2.7e-3 to 4.4e-3; loss 6.1e-4 to 1.5e-3;
+# gradient norm 1.7e-3. The bounds sit at 1.5x the largest noise-prediction
+# reading (the tiny probe's planted ln_linear and LayerNorm faults read
+# mean rel 6.95e-2 and 8.64e-2, STEP_TOLS's note) and at 2.5-3x the others.
+TRAIN_TOLS = {"noise_pred": (8e-2, 3.5e-2), "loss": 5e-3, "grad_norm": 5e-3,
+              "grads": (2e-2, 1e-2)}
+TRAIN_LEAVES = (
+    "unet.conv_in.kernel",
+    "unet.down_blocks.1.attentions.0.blocks.0.attn1.to_qkv.kernel",
+    "unet.down_blocks.1.attentions.0.blocks.0.ff.proj_in.kernel",
+    "unet.conv_out.kernel",
+    "resampler.proj_in.kernel")
+TRAIN_STEPS = 3
+TRAIN_TIMESTEP = 500
+# the micro CLI run (cli/train.py --micro) at this image size: the VAE's
+# 128-channel convs take #5, GroupNorm #3, TryonNet's 32-wide level (4
+# heads of 8) over 192 own + 192 garment keys #9 (GarmentNet's 192 keys
+# stay on the plain formula, as in JAX)
+TRAIN_CLI_SIZE = (192, 256)
+
+
+def check_kernel_grads(dev):
+    """Each kernel with an autograd Function (``ops.autograd``) at its
+    phase-3 shapes: the gradient of every differentiable input through the
+    Function (the kernel forward, the plain version's VJP) against plain
+    autograd's, max |diff| / max |plain|, within BF16_TOL; forward +
+    backward timed both ways (CUDA events, 3 runs after 2). Returns
+    {kernel: backward readings}."""
+    import torch
+    out = {}
+    for name, _, _, _, cases in kernel_cases(dev):
+        worst, ms, plain_ms, n = 0.0, 0.0, 0.0, 0
+        for c in cases:
+            if "vjp" not in c:
+                continue
+            entry, ins, kw, plain, *wrt = c["vjp"]
+            wrt = [i for i in (wrt[0] if wrt else range(len(ins)))
+                   if ins[i] is not None and ins[i].is_floating_point()]
+            gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+            def run(fn):
+                xs = [t if t is None else t.detach().clone()
+                      .requires_grad_(i in wrt) for i, t in enumerate(ins)]
+                outs = fn(*xs, **kw)
+                outs = outs if isinstance(outs, tuple) else (outs,)
+                cots = [torch.randn(o.shape, generator=gen.manual_seed(
+                    SEED + 5), device=dev).to(o.dtype) for o in outs]
+                return torch.autograd.grad(outs, [xs[i] for i in wrt], cots)
+
+            got, want = run(entry), run(plain)
+            torch.cuda.synchronize()
+            err = max(errors(g, w)[1] for g, w in zip(got, want))
+            if not all(g.dtype == w.dtype for g, w in zip(got, want)):
+                fail(f"{name} {c['label']}: gradient types differ")
+            del got, want
+            k_ms = cuda_time_ms(lambda: run(entry), iters=3)
+            p_ms = cuda_time_ms(lambda: run(plain), iters=3)
+            log(f"kernel {name} {c['label']} backward: gradients max rel "
+                f"err {err:.3e} (tol {BF16_TOL:g}) against plain autograd; "
+                f"forward + backward {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+            if not err <= BF16_TOL:
+                fail(f"{name} {c['label']}: gradient error {err}")
+            worst, ms, plain_ms, n = (max(worst, err), ms + k_ms,
+                                      plain_ms + p_ms, n + 1)
+            torch.cuda.empty_cache()
+        if n:
+            out[name] = {"grad_max_rel_err": worst, "grad_tol_rel": BF16_TOL,
+                         "fwd_bwd_ms": ms, "plain_fwd_bwd_ms": plain_ms,
+                         "shapes": n}
+    return out
+
+
+def train_batch(models, dev, gen):
+    """One full-width training sample (batch 1, HEIGHT x WIDTH) from the
+    seed, with the noise and timestep given (both impls then draw
+    nothing)."""
+    import torch
+    ds = models.vae_cfg.downscale
+    img = lambda: (torch.rand(1, HEIGHT, WIDTH, 3, generator=gen,
+                              device=dev) * 2 - 1)
+    ids = lambda: torch.randint(0, models.clip_l_cfg.vocab_size, (1, 77),
+                                generator=gen, device=dev)
+    mask = torch.zeros(1, HEIGHT, WIDTH, 1, device=dev)
+    mask[:, HEIGHT // 5:4 * HEIGHT // 5, WIDTH // 6:5 * WIDTH // 6] = 1
+    isz = models.vision_cfg.image_size
+    return dict(person=img(), pose=img(), cloth=img(), mask=mask,
+                prompt_ids_l=ids(), prompt_ids_g=ids(), cloth_ids_l=ids(),
+                cloth_ids_g=ids(),
+                ip_pixels=torch.rand(1, isz, isz, 3, generator=gen,
+                                     device=dev) * 2 - 1,
+                noise=torch.randn(1, HEIGHT // ds, WIDTH // ds, 4,
+                                  generator=gen, device=dev),
+                timesteps=torch.tensor([TRAIN_TIMESTEP], device=dev))
+
+
+def train_sites(models, state, sched, batch, wrappers):
+    """The launches of one training forward: the loss under no_grad (each
+    frozen tower once, TryonNet once, nothing recomputed), and of those the
+    ones inside TryonNet's resnet blocks and Transformer2Ds (read by
+    hooks), which remat runs again in the backward. A train step's exact
+    count is their sum: no kernel runs in a backward."""
+    import torch
+    from idmvton_tpu_torch.models.resnet import ResnetBlock
+    from idmvton_tpu_torch.models.transformer import Transformer2D
+    from idmvton_tpu_torch.train.train_step import tryon_loss
+    remat = dict.fromkeys(wrappers, 0)
+    snap = {}
+
+    def pre(mod, args):
+        snap[id(mod)] = {k: w.launches for k, w in wrappers.items()}
+
+    def post(mod, args, res):
+        for k, w in wrappers.items():
+            remat[k] += w.launches - snap[id(mod)][k]
+
+    blocks = [m for m in models.unet.modules()
+              if isinstance(m, (ResnetBlock, Transformer2D))]
+    hooks = [h for m in blocks for h in (m.register_forward_pre_hook(pre),
+                                         m.register_forward_hook(post))]
+    for w in wrappers.values():
+        w.launches = 0
+    try:
+        with torch.no_grad():
+            tryon_loss(state.trainable, models, sched, batch, impl="cuda",
+                       vae_sample=False)
+    finally:
+        for h in hooks:
+            h.remove()
+    once = {k: w.launches for k, w in wrappers.items()}
+    return once, remat, len(blocks)
+
+
+def train_readings(models, state, sched, batch, impl, grads: bool):
+    """The loss, TryonNet's output (read by a hook) and, with ``grads``,
+    the global gradient norm and the gradients of TRAIN_LEAVES, of one
+    training forward with ``impl``."""
+    import torch
+    from idmvton_tpu_torch.train.train_step import (
+        flat_params, global_norm, tryon_loss,
+    )
+    out = {}
+
+    def read(mod, args, res):
+        out.setdefault("pred", res[0].detach())
+
+    hook = models.unet.register_forward_hook(read)
+    try:
+        with torch.set_grad_enabled(grads):
+            loss = tryon_loss(state.trainable, models, sched, batch,
+                              impl=impl, vae_sample=False)
+            out["loss"] = float(loss.detach())
+            if grads:
+                params = flat_params(state.trainable)
+                gs = torch.autograd.grad(loss, list(params.values()))
+                out["grad_norm"] = float(global_norm(gs))
+                out["grads"] = {k: g for k, g in zip(params, gs)
+                                if k in TRAIN_LEAVES}
+                del gs
+    finally:
+        hook.remove()
+    return out
+
+
+def gate_train_readings(label, got, want, tols):
+    """Fails where ``got`` (impl="cuda") differs from ``want`` ("torch")
+    by more than ``tols`` (TRAIN_TOLS's layout); logs every reading."""
+    pairs = [("noise_pred", got["pred"], want["pred"], tols["noise_pred"])]
+    pairs += [(k, got["grads"][k], want["grads"][k], tols["grads"])
+              for k in got.get("grads", {})]
+    for what, a, b, (max_tol, mean_tol) in pairs:
+        a, b = a.float(), b.float()
+        rel = errors(a, b)[1]
+        mean_rel = float((a - b).abs().mean() / b.abs().mean())
+        log(f"{label} {what} cuda vs torch: max rel {rel:.3e} (tol "
+            f"{max_tol:g}), mean rel {mean_rel:.3e} (tol {mean_tol:g})")
+        if not (rel <= max_tol and mean_rel <= mean_tol):
+            fail(f"{label}: {what} cuda vs torch max rel {rel}, mean rel "
+                 f"{mean_rel}")
+    for what in ("loss", "grad_norm"):
+        if what not in got:
+            continue
+        rel = abs(got[what] - want[what]) / max(abs(want[what]), 1e-12)
+        log(f"{label} {what} cuda {got[what]:.6g} torch {want[what]:.6g}: "
+            f"rel {rel:.3e} (tol {tols[what]:g})")
+        if not rel <= tols[what]:
+            fail(f"{label}: {what} cuda {got[what]} torch {want[what]}")
+
+
+def check_train(wrappers, dev, card):
+    """Phase 10's full-width part: the sdxl_tryon TryonNet and the
+    Resampler trained (fp32 masters, bf16 compute, remat, adamw) beside the
+    phase-4 stack's frozen towers (random biases and norm affines), batch 1
+    at HEIGHT x WIDTH, SchedulerConfig.train(). One step's loss, noise
+    prediction and gradients impl="cuda" against impl="torch"; then
+    TRAIN_STEPS adamw steps through ``make_train_step`` on the card, each
+    finite, moving the parameters and launching exactly the forward's
+    kernels plus the rematerialized blocks' again, with the forward before
+    steps 2 and 3 held cuda against torch on the updated masters. Returns
+    the steps' launch counts."""
+    import gc
+    import torch
+    from idmvton_tpu_torch.core.config import SchedulerConfig
+    from idmvton_tpu_torch.diffusion.scheduler import DDPMScheduler
+    from idmvton_tpu_torch.pipeline.tryon import TryonModels
+    from idmvton_tpu_torch.train.train_step import (
+        flat_params, init_train_state, make_optimizer, make_train_step,
+    )
+    t0 = time.perf_counter()
+    models = TryonModels.init(SEED, device=dev, dtype=torch.bfloat16)
+    for i, module in enumerate(models.components().values()):
+        random_affine_(module, SEED + 10 + i)
+    tx = make_optimizer()
+    state = init_train_state(models, tx)
+    n_train = sum(p.numel() for p in flat_params(state.trainable).values())
+    torch.cuda.synchronize()
+    log(f"train: {n_train / 1e9:.3f} B trainable fp32 masters + adamw "
+        f"moments in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident")
+    sched = DDPMScheduler(SchedulerConfig.train())
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    batch = train_batch(models, dev, gen)
+
+    once, remat, n_blocks = train_sites(models, state, sched, batch, wrappers)
+    exact = {k: once[k] + remat[k] for k in wrappers}
+    log(f"train step sites: forward {once}; again in the backward "
+        f"({n_blocks} rematerialized TryonNet blocks) {remat}")
+
+    readings = {impl: train_readings(models, state, sched, batch, impl, True)
+                for impl in ("cuda", "torch")}
+    gate_train_readings("train step", readings["cuda"], readings["torch"],
+                        TRAIN_TOLS)
+    del readings
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    step = make_train_step(models, sched, tx, impl="cuda", vae_sample=False)
+    watch = "unet.down_blocks.1.attentions.0.blocks.0.attn1.to_qkv.kernel"
+    counts = dict.fromkeys(wrappers, 0)
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for i in range(TRAIN_STEPS):
+        if i:
+            got, want = (train_readings(models, state, sched, batch, impl,
+                                        False) for impl in ("cuda", "torch"))
+            gate_train_readings(f"train forward before step {i + 1}", got,
+                                want, TRAIN_TOLS)
+            del got, want
+        before = flat_params(state.trainable)[watch].detach().clone()
+        for w in wrappers.values():
+            w.launches = 0
+        t1 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+        step_counts = {k: w.launches for k, w in wrappers.items()}
+        moved = float((flat_params(state.trainable)[watch].detach()
+                       - before).abs().max())
+        log(f"train step {i + 1}: {secs[-1]:.3f} s, loss {loss:.6g}, "
+            f"grad norm {gnorm:.6g}, {watch} moved by {moved:.3e}; "
+            f"launches {step_counts}")
+        if not (math.isfinite(loss) and math.isfinite(gnorm) and moved > 0):
+            fail(f"train step {i + 1}: loss {loss}, grad norm {gnorm}, "
+                 f"moved {moved}")
+        if step_counts != exact:
+            fail(f"train step {i + 1}: launches {step_counts}, expected "
+                 f"{exact}")
+        for k, n in step_counts.items():
+            counts[k] += n
+    for k, w in wrappers.items():
+        w.launches = counts[k]
+    counts = gate_launches(wrappers, "train")
+    warm = secs[1:]
+    log(f"train: {card}; seconds a step {', '.join(f'{s:.3f}' for s in secs)}"
+        f" (warm mean {sum(warm) / len(warm):.3f} s, "
+        f"{len(warm) / sum(warm):.3f} img/s at batch 1); peak memory "
+        f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"reserved {torch.cuda.max_memory_reserved() / 2**30:.2f} GiB "
+        f"(adamw, the serving TryonNet's bf16 copy kept)")
+    del models, state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def write_viton_tree(root, phase, n, size):
+    """A synthetic VITON-HD split of n seeded samples (images, DensePose
+    images, garments, agnostic masks, pairs, tagged captions) at ``size``
+    (width, height)."""
+    import numpy as np
+    from PIL import Image
+    w, h = size
+    names = [f"{i:05d}_00.jpg" for i in range(n)]
+    for sub in ("image", "cloth", "image-densepose", "agnostic-mask"):
+        os.makedirs(os.path.join(root, phase, sub), exist_ok=True)
+    rng = np.random.RandomState(SEED)
+    for name in names:
+        img = Image.fromarray(rng.randint(0, 255, (h, w, 3), np.uint8))
+        for sub in ("image", "cloth", "image-densepose"):
+            img.save(os.path.join(root, phase, sub, name))
+        Image.fromarray((rng.rand(h, w) > 0.5).astype(np.uint8) * 255).save(
+            os.path.join(root, phase, "agnostic-mask",
+                         name.replace(".jpg", "_mask.png")))
+    with open(os.path.join(root, f"{phase}_pairs.txt"), "w") as f:
+        f.write("\n".join(f"{a} {b}" for a, b in zip(names, names[::-1])))
+    tagged = {"data": [{"file_name": name, "tag_info": [
+        {"tag_name": "item", "tag_category": "t shirts"}]}
+        for name in names]}
+    with open(os.path.join(root, phase, f"vitonhd_{phase}_tagged.json"),
+              "w") as f:
+        json.dump(tagged, f)
+
+
+def check_train_cli(wrappers):
+    """Phase 10's CLI part: ``cli.train.main --micro`` on the card over a
+    synthetic VITON-HD tree in a temporary directory: 2 optimizer steps of
+    2 micro-batches (--gradient_accumulation_steps 2), a checkpoint at each
+    (``step_{n}``: the trained stack; the train state), eval images at step
+    2 (``stepwise_generate``), then ``--resume_from_checkpoint`` on to step
+    3. Returns both runs' launch counts."""
+    import shutil
+    import tempfile
+    from idmvton_tpu_torch.cli import train as cli_train
+    tmp = tempfile.mkdtemp(prefix="idm_train_cli_")
+    try:
+        root, out = os.path.join(tmp, "viton"), os.path.join(tmp, "out")
+        write_viton_tree(root, "train", 4, TRAIN_CLI_SIZE)
+        write_viton_tree(root, "test", 2, TRAIN_CLI_SIZE)
+        w, h = TRAIN_CLI_SIZE
+        common = ["--data_dir", root, "--output_dir", out, "--micro",
+                  "--width", str(w), "--height", str(h),
+                  "--train_batch_size", "1",
+                  "--gradient_accumulation_steps", "2",
+                  "--checkpointing_steps", "1", "--logging_steps", "1",
+                  "--device", "cuda"]
+        for k in wrappers.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        state = cli_train.main(common + ["--max_steps", "2", "--eval_steps",
+                                         "2", "--num_inference_steps", "2",
+                                         "--test_batch_size", "2"])
+        first = time.perf_counter() - t0
+        files = sorted(os.listdir(out))
+        states = sorted(os.listdir(os.path.join(out, "state")))
+        log(f"train cli: {first:.1f} s, micro-steps {state.step}; "
+            f"{files}; states {states}")
+        if (state.step != 4 or states != ["state_2", "state_4"]
+                or not {"step_1", "step_2", "2_0_test.jpg",
+                        "2_1_test.jpg"} <= set(files)):
+            fail(f"train cli: step {state.step}, files {files}, states "
+                 f"{states}")
+        t0 = time.perf_counter()
+        state = cli_train.main(common + ["--max_steps", "3",
+                                         "--resume_from_checkpoint",
+                                         os.path.join(out, "state")])
+        states = sorted(os.listdir(os.path.join(out, "state")))
+        log(f"train cli resumed: {time.perf_counter() - t0:.1f} s, "
+            f"micro-steps {state.step}; states {states}")
+        if state.step != 6 or not os.path.isdir(os.path.join(out, "step_3")):
+            fail(f"train cli resume: step {state.step}, states {states}")
+        return gate_launches(wrappers, "train_cli")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     if not (ROOT / "idmvton_tpu_torch" / "ops" / "csrc").is_dir():
         fail("idmvton_tpu_torch/ not found beside chip_smoke.py: run it from "
@@ -1419,7 +1855,8 @@ def main():
                          text=True, timeout=60)
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    log(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1538,12 +1975,20 @@ def main():
             args, tiny, built, wrappers, "tiny",
             exact=dict(TINY_CONV_PER_BATCH,
                        flash_attention=TINY_FLASH_PER_STEP * STEPS))
+        del tiny, built
+    torch.cuda.empty_cache()
+
+    # -- phase 10: training (autograd, outside inference mode) ---------------
+    backward = check_kernel_grads(dev)
+    counts["train"] = check_train(wrappers, dev, card)
+    counts["train_cli"] = check_train_cli(wrappers)
 
     kernels = []
     for name in wrappers:
         by_path = {path: c[name] for path, c in counts.items()}
         kernels.append(dict(results[name], launches=sum(by_path.values()),
-                            launches_by_path=by_path))
+                            launches_by_path=by_path,
+                            backward=backward.get(name)))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -149,7 +149,18 @@ _RESULT_PAGE = """<!doctype html>
 class TryonService:
     """Holds the models and the serving programs; single-flight. ``models``
     (a ``TryonModels``) serves an existing stack instead of building one
-    from ``args``."""
+    from ``args``.
+
+    All of a request's card work -- the auto mask's OpenPose and SCHP, the
+    DensePose R-CNN and the generation -- runs under one re-entrant lock
+    (``lock``), as do ``auto_mask`` and ``pose_image`` called alone. A
+    first request of a graph key captures its step as a CUDA graph
+    (``pipeline/graph.py``) in ``capture_error_mode="global"``, which
+    forbids another thread's allocations while it is open, and counts the
+    capture's launches from the process-wide counters: a second request's
+    preprocessing beside it would break the capture or have its launches
+    replayed with every step. JAX's demo locks only the generation; it has
+    no capture to break."""
 
     def __init__(self, args, *, models=None):
         from idmvton_tpu_torch.data.tokenizer import load_tokenizers
@@ -198,7 +209,7 @@ class TryonService:
                 short_edge=64, max_size=96, device=device)
         else:
             self.densepose = DensePose(device=device)
-        self.lock = threading.Lock()
+        self.lock = threading.RLock()
         self._gens = {}
         self.examples = self._discover_examples(
             getattr(args, "examples_dir", None))
@@ -302,12 +313,19 @@ class TryonService:
             get_mask_location,
         )
         clock = clock or (lambda name: None)
-        keypoints = self.openpose(small)
-        clock("openpose")
-        parse = self.parsing.labels(small)
-        clock("parsing")
+        with self.lock:
+            keypoints = self.openpose(small)
+            clock("openpose")
+            parse = self.parsing.labels(small)
+            clock("parsing")
         mask_pil, _ = get_mask_location("hd", "upper_body", parse, keypoints)
         return np.asarray(mask_pil)
+
+    def pose_image(self, person: np.ndarray) -> np.ndarray:
+        """DensePose's painted pose image of a (H, W, 3) uint8 person at
+        the service's size."""
+        with self.lock:
+            return self.densepose(person)
 
     def tryon_arrays(self, person: np.ndarray, cloth: np.ndarray,
                      ip: np.ndarray, desc: str, *, small=None, mask=None,
@@ -317,7 +335,14 @@ class TryonService:
         ``mask`` (H, W) bool, the drawn layer, or None for the auto mask
         from ``small``, the (512, 384, 3) uint8 person. Returns (result,
         masked-gray preview), (H, W, 3) uint8 each. ``clock(name)`` ends
-        each stage."""
+        each stage. The whole request runs under ``lock``."""
+        with self.lock:
+            return self._tryon_arrays(person, cloth, ip, desc, small=small,
+                                      mask=mask, steps=steps, seed=seed,
+                                      clock=clock)
+
+    def _tryon_arrays(self, person, cloth, ip, desc, *, small, mask, steps,
+                      seed, clock):
         from PIL import Image
 
         from idmvton_tpu_torch.cli.infer import resize_ip_pixels
@@ -338,7 +363,7 @@ class TryonService:
         person_pm1 = person.astype(np.float32) / 255.0 * 2.0 - 1.0
         mask_gray = denormalize_to_uint8(((1.0 - mask) * person_pm1)[None])[0]
 
-        pose_rgb = self.densepose(person)
+        pose_rgb = self.pose_image(person)
         clock("densepose")
         caption = "model is wearing " + desc
         caption_cloth = "a photo of " + desc
@@ -369,8 +394,7 @@ class TryonService:
             cloth_ids_g=ids(self.tok2, caption_cloth),
         )
         generator = torch.Generator(device=dev).manual_seed(seed)
-        with self.lock:
-            images = self._gen(steps)(generator, **inputs)
+        images = self._gen(steps)(generator, **inputs)
         out = denormalize_to_uint8(images.float().cpu().numpy())[0]
         clock("tryon")
         return out, mask_gray

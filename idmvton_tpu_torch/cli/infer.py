@@ -117,6 +117,37 @@ def resize_ip_pixels(ip, size: int):
     return x.permute(0, 2, 3, 1).contiguous()
 
 
+def batch_inputs(batch, models, tok1, tok2, device, dtype) -> dict:
+    """A loader batch (numpy, the dataset layout) as the pipeline's
+    tensors on ``device``: the images in ``dtype``, ip_pixels resized to
+    the vision tower's size, the token ids of the captions and of the
+    negative prompt."""
+    def tensor(a):
+        return torch.from_numpy(np.asarray(a)).to(device)
+
+    def ids(tok, texts):
+        return tensor(tok(texts)).long()
+
+    negative = [NEGATIVE_PROMPT] * batch["person"].shape[0]
+    isz = models.vision_cfg.image_size
+    ip = tensor(batch["ip_pixels"])
+    if ip.shape[1] != isz:
+        ip = resize_ip_pixels(ip, isz)
+    return dict(
+        person=tensor(batch["person"]).to(dtype),
+        mask=tensor(batch["mask"]).to(dtype),
+        pose=tensor(batch["pose"]).to(dtype),
+        cloth=tensor(batch["cloth"]).to(dtype),
+        ip_pixels=ip.to(dtype),
+        prompt_ids_l=ids(tok1, batch["caption"]),
+        prompt_ids_g=ids(tok2, batch["caption"]),
+        neg_ids_l=ids(tok1, negative),
+        neg_ids_g=ids(tok2, negative),
+        cloth_ids_l=ids(tok1, batch["caption_cloth"]),
+        cloth_ids_g=ids(tok2, batch["caption_cloth"]),
+    )
+
+
 def run(args, pipe, models, loader, tok1, tok2, generator):
     """Yields (image names, uint8 images (B, H, W, 3)) for each batch of
     ``loader`` (numpy batches in the dataset layout), up to ``args.limit``
@@ -127,35 +158,10 @@ def run(args, pipe, models, loader, tok1, tok2, generator):
     gen = pipe.jit_generate(num_steps=args.num_inference_steps,
                             guidance_scale=args.guidance_scale,
                             strength=args.strength)
-    isz = models.vision_cfg.image_size
-
-    def tensor(a):
-        return torch.from_numpy(np.asarray(a)).to(dev)
-
-    def ids(tok, texts):
-        return tensor(tok(texts)).long()
-
     for bi, batch in enumerate(loader):
         if args.limit is not None and bi >= args.limit:
             break
-        b = batch["person"].shape[0]
-        negative = [NEGATIVE_PROMPT] * b
-        ip = tensor(batch["ip_pixels"])
-        if ip.shape[1] != isz:
-            ip = resize_ip_pixels(ip, isz)
-        inputs = dict(
-            person=tensor(batch["person"]).to(dtype),
-            mask=tensor(batch["mask"]).to(dtype),
-            pose=tensor(batch["pose"]).to(dtype),
-            cloth=tensor(batch["cloth"]).to(dtype),
-            ip_pixels=ip.to(dtype),
-            prompt_ids_l=ids(tok1, batch["caption"]),
-            prompt_ids_g=ids(tok2, batch["caption"]),
-            neg_ids_l=ids(tok1, negative),
-            neg_ids_g=ids(tok2, negative),
-            cloth_ids_l=ids(tok1, batch["caption_cloth"]),
-            cloth_ids_g=ids(tok2, batch["caption_cloth"]),
-        )
+        inputs = batch_inputs(batch, models, tok1, tok2, dev, dtype)
         images = gen(generator, **inputs)
         yield list(batch["im_name"]), denormalize_to_uint8(
             images.float().cpu().numpy())

@@ -5,8 +5,9 @@ linear / squaredcos_cap_v2 betas, the zero-terminal-SNR rescale, leading /
 trailing / linspace spacing or a custom timestep list, the strength
 truncation, the ``denoising_start`` / ``denoising_end`` trims (values
 outside (0, 1) ignored, with ``prev_t`` taken before the end trim), epsilon
-/ v / sample prediction, ``add_noise``, and the classifier-free-guidance
-combine with its rescale.
+/ v / sample prediction, ``add_noise``, the training targets and weights
+(``get_velocity``, ``snr``), and the classifier-free-guidance combine
+with its rescale.
 
 Timesteps are host integers. ``step`` computes its coefficients in numpy
 float32 (the JAX package's fp32 arithmetic) from a Python-int ``t`` and
@@ -97,6 +98,26 @@ class DDPMScheduler:
         return (coef(np.sqrt(ac)) * sample.float()
                 + coef(np.sqrt(np.float32(1.0) - ac)) * noise.float()
                 ).to(sample.dtype)
+
+    def get_velocity(self, sample, noise, timesteps):
+        """The v-prediction target sqrt(ac_t) * noise - sqrt(1 - ac_t) *
+        sample in fp32, cast to the sample's type; ``timesteps`` as
+        ``add_noise``'s."""
+        ac = self.alphas_cumprod[np.asarray(timesteps)]
+        shape = (-1,) + (1,) * (sample.dim() - 1)
+        coef = lambda a: torch.from_numpy(
+            np.atleast_1d(a).astype(np.float32)).to(sample.device).reshape(
+            shape)
+        return (coef(np.sqrt(ac)) * noise.float()
+                - coef(np.sqrt(np.float32(1.0) - ac)) * sample.float()
+                ).to(sample.dtype)
+
+    def snr(self, timesteps) -> torch.Tensor:
+        """Signal-to-noise ratio ac_t / max(1 - ac_t, 1e-12), fp32, one per
+        timestep (a CPU tensor; min-SNR weighting moves it to the loss)."""
+        ac = np.atleast_1d(self.alphas_cumprod[np.asarray(timesteps)])
+        return torch.from_numpy(
+            ac / np.maximum(np.float32(1.0) - ac, np.float32(1e-12)))
 
     def timesteps(self, num_inference_steps: int, strength: float = 1.0,
                   denoising_start: float = None, denoising_end: float = None,

@@ -11,8 +11,10 @@ Projections are stored fused as in the JAX package (``to_qkv``; ``to_q`` +
 fuse into their GEMMs (``ln_linear``), GarmentNet's emitted LayerNorm runs
 ``fused_layer_norm`` and self-attention runs ``flash_attention_gemm`` --
 each where the JAX package takes the Pallas kernel, under the same shape
-predicates; its softmax mode is ``IDMVTON_FLASH_FIXED_SHIFT`` (or a failed
-``calibrate_fixed_shift``), read at every call as JAX reads it.
+predicates, through ``ops.autograd`` (a differentiated launch gets its
+plain version's VJP); its softmax mode is ``IDMVTON_FLASH_FIXED_SHIFT``
+(or a failed ``calibrate_fixed_shift``), read at every call as JAX reads
+it, except in a differentiated forward, which takes the online softmax.
 Self-attention over head layouts ``flash_attention_gemm`` does not take
 (H*D not a multiple of 128, as at the tiny UNet's 64-wide level)
 goes through ``sdpa`` / ``concat_kv_attention`` with the caller's impl, so
@@ -44,13 +46,15 @@ from idmvton_tpu_torch.ops.attention import (
     concat_kv_attention, decoupled_ip_attention, sdpa,
 )
 from idmvton_tpu_torch.ops.cuda_attention import (
-    _fixed_shift, cross_attention_small_kv,
-    cross_attention_small_kv_supported, flash_attention_gemm,
+    _fixed_shift, cross_attention_small_kv_supported,
     flash_attention_gemm_supported,
 )
+from idmvton_tpu_torch.ops.autograd import (
+    cross_attention_small_kv, flash_attention_gemm, fused_layer_norm,
+    ln_linear, ln_linear_i8,
+)
 from idmvton_tpu_torch.ops.cuda_norm import (
-    fused_layer_norm, ln_linear, ln_linear_i8, ln_linear_supported,
-    supports_fused_ln,
+    ln_linear_supported, supports_fused_ln,
 )
 from idmvton_tpu_torch.ops.dispatch import narrow, resolve
 
@@ -76,14 +80,16 @@ def _ln_proj(x, norm, proj, *, geglu=False, impl=None):
     if (norm is not None and resolve(impl, x) == "cuda"
             and ln_linear_supported(x, w, geglu=geglu)):
         # an fp32 stack hands the kernels bf16 x and weights (their
-        # operands), and takes the product back in fp32
+        # operands), and takes the product back in fp32; the kernels take
+        # fp32 affines, so a training step's bf16-rounded ones are widened
+        # back (the kernel widens them anyway: the values are JAX's)
+        gamma, beta = norm.scale.float(), norm.bias.float()
         if quant:
-            return ln_linear_i8(narrow(x), norm.scale, norm.bias, w,
+            return ln_linear_i8(narrow(x), gamma, beta, w,
                                 proj.kernel_scale, proj.bias,
                                 geglu=geglu).to(x.dtype)
-        return ln_linear(narrow(x), norm.scale, norm.bias,
-                         kernel_weight(proj), proj.bias,
-                         geglu=geglu).to(x.dtype)
+        return ln_linear(narrow(x), gamma, beta, kernel_weight(proj),
+                         proj.bias, geglu=geglu).to(x.dtype)
     if norm is not None:
         x = layer_norm(norm, x)
     h = linear(proj.dequantized(x.dtype), x)
@@ -236,8 +242,8 @@ class TransformerBlock(nn.Module):
             # the LN output is the emitted feature, so it cannot fuse into
             # the QKV GEMM; the standalone LN kernel runs here instead
             if resolve(impl, x) == "cuda" and supports_fused_ln(x):
-                h = fused_layer_norm(narrow(x), self.norm1.scale,
-                                     self.norm1.bias).to(x.dtype)
+                h = fused_layer_norm(narrow(x), self.norm1.scale.float(),
+                                     self.norm1.bias.float()).to(x.dtype)
             else:
                 h = layer_norm(self.norm1, x)
             emitted = h

@@ -3,8 +3,10 @@
 Counterpart of ``idmvton_tpu/models/layers.py``. Layouts are the JAX
 package's: feature maps NHWC, conv kernels HWIO ``(kh, kw, in, out)``,
 linear kernels ``(in, out)``, so parameter trees load without transposes
-(``weights/from_jax.py``). Parameters are frozen (forward only); norm affine
-parameters are fp32 as in the JAX package.
+(``weights/from_jax.py``). Parameters are frozen (``requires_grad=False``:
+training differentiates fp32 masters of its own, handed to the modules
+through ``torch.func.functional_call``, ``train/train_step.py``); norm
+affine parameters are fp32 as in the JAX package.
 
 ``conv2d`` routes 3x3 stride-1 SAME convs to the ``conv3x3`` kernels and
 ``group_norm`` its statistics to ``gn_spatial_stats`` exactly where the JAX
@@ -15,6 +17,12 @@ conv kernels take an fp32 x (the VAE's fp32 decode, the preprocessing nets)
 with bf16 weights; an fp32 weight reaches them as its bf16 copy
 (``kernel_weight``), made once per weights version.
 ``QuantLinear`` is the int8 form of ``Linear`` for W8A8 serving.
+
+The kernel sites call the kernels through ``ops.autograd``, so a forward
+under autograd (training) differentiates each launch by its plain
+version's VJP; a trainable weight (one that requires grad: the training
+step's fresh bf16 copies of its fp32 masters) reaches them as it is, never
+through ``kernel_weight``'s cached copy.
 """
 
 from __future__ import annotations
@@ -26,13 +34,16 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from idmvton_tpu_torch.ops.autograd import (
+    conv3x3, conv3x3_hblock, conv3x3_padacc, gn_spatial_stats,
+)
 from idmvton_tpu_torch.ops.dispatch import resolve
 from idmvton_tpu_torch.ops.cuda_conv import (
-    conv3x3, conv3x3_hblock, conv3x3_hblock_supported, conv3x3_padacc,
-    conv3x3_supported, conv3x3_torch, conv_padacc_enabled,
+    conv3x3_hblock_supported, conv3x3_supported, conv3x3_torch,
+    conv_padacc_enabled,
 )
 from idmvton_tpu_torch.ops.cuda_norm import (
-    gn_spatial_stats, gn_stats_supported, layer_norm_torch,
+    gn_stats_supported, layer_norm_torch,
 )
 from idmvton_tpu_torch.ops.quant import (
     dequantize_kernel_int8, quantize_kernel_int8,
@@ -197,10 +208,15 @@ def kernel_weight(owner: nn.Module) -> torch.Tensor:
     bf16 weight passes as it is; another type (an fp32 stack, the fp32
     preprocessing nets) gets a bf16 copy kept on ``owner``, made once per
     weights version: again after any ``weights_changed_`` or when the
-    weight moves, never at every call."""
+    weight moves, never at every call. A weight that requires grad (an
+    fp32 master under training, which the optimizer updates in place, so
+    neither the epoch nor the address would tell a stale copy) is cast at
+    every call, inside the autograd graph."""
     w = owner.kernel
     if w.dtype == torch.bfloat16:
         return w
+    if w.requires_grad:
+        return w.to(torch.bfloat16)
     key = (_weights_epoch, w.data_ptr(), w.device)
     cached = owner.__dict__.get("_kernel_bf16")
     if cached is None or cached[0] != key:

@@ -8,7 +8,11 @@ Counterpart of ``idmvton_tpu/models/unet.py``::
 - consume mode takes ``cfg.num_garment_features`` features in execution
   order (down -> mid -> up), the order emit mode produces them;
 - emit mode (GarmentNet, ``skip_final_output``) stops after the cross-attn
-  up blocks and returns (None, features).
+  up blocks and returns (None, features);
+- ``remat=True`` (JAX ``_maybe_remat``, models/unet.py:171-228) runs each
+  resnet block and each Transformer2D under ``torch.utils.checkpoint``
+  (non-reentrant) where autograd records the forward: their activations
+  are recomputed in the backward, so their kernels launch twice a step.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from idmvton_tpu_torch.core.config import UNetConfig
 from idmvton_tpu_torch.models.layers import (
@@ -37,6 +43,17 @@ def _mlp(in_dim, dim, kw):
 def _mlp_apply(p, x, dtype):
     h = linear(p["linear_1"], x)
     return linear(p["linear_2"], F.silu(h.float()).to(dtype))
+
+
+def _remat(module, *args, **kw):
+    """``module(*args, **kw)`` under non-reentrant checkpointing. The
+    recompute runs in the backward, after an enclosing ``functional_call``
+    (the training step's bf16 weights) has put the module's own parameters
+    back, so the tensors it reads now are passed in again. The blocks draw
+    no random numbers: no RNG state is kept."""
+    params = dict(module.named_parameters())
+    return checkpoint(lambda *a: functional_call(module, params, a, kw),
+                      *args, use_reentrant=False, preserve_rng_state=False)
 
 
 class UNet(nn.Module):
@@ -137,11 +154,13 @@ class UNet(nn.Module):
 
     def forward(self, sample, timesteps, context, *, added_cond=None,
                 garment_features: Optional[Tuple[torch.Tensor, ...]] = None,
-                garment_uncond_zero: bool = False, impl=None):
+                garment_uncond_zero: bool = False, impl=None,
+                remat: bool = False):
         """sample (B, H, W, in_channels); timesteps (B,) or scalar; context
         (B, S, cross_attention_dim). ``garment_uncond_zero``: the features
         carry only the cond half (B/2 rows) and the leading B/2 rows attend
-        to all-zero garment KV."""
+        to all-zero garment KV. ``remat``: checkpoint each resnet block and
+        Transformer2D when autograd records the call."""
         cfg = self.cfg
         dtype = sample.dtype
         mode = cfg.garment_mode
@@ -163,6 +182,8 @@ class UNet(nn.Module):
         ip_tokens = cfg.ip_num_tokens if cfg.ip_adapter else 0
         feat_idx = 0
         emitted = []
+        call = (_remat if remat and torch.is_grad_enabled()
+                else lambda module, *a, **kw: module(*a, **kw))
 
         def run_t2d(t2d, h):
             nonlocal feat_idx
@@ -171,10 +192,11 @@ class UNet(nn.Module):
             if mode == "consume":
                 gf = tuple(garment_features[feat_idx:feat_idx + depth])
                 feat_idx += depth
-            h, em = t2d(h, context, garment_mode=mode, garment_feats=gf,
-                        garment_uncond_zero=garment_uncond_zero,
-                        ip_num_tokens=ip_tokens, ip_scale=cfg.ip_scale,
-                        impl=impl)
+            h, em = call(t2d, h, context, garment_mode=mode,
+                         garment_feats=gf,
+                         garment_uncond_zero=garment_uncond_zero,
+                         ip_num_tokens=ip_tokens, ip_scale=cfg.ip_scale,
+                         impl=impl)
             emitted.extend(em)
             return h
 
@@ -182,7 +204,7 @@ class UNet(nn.Module):
         res_stack = [h]
         for blk in self.down_blocks:
             for i, res in enumerate(blk["resnets"]):
-                h = res(h, temb, impl=impl)
+                h = call(res, h, temb, impl=impl)
                 if "attentions" in blk:
                     h = run_t2d(blk["attentions"][i], h)
                 res_stack.append(h)
@@ -191,14 +213,14 @@ class UNet(nn.Module):
                 res_stack.append(h)
 
         mid = self.mid_block
-        h = mid["resnets"][0](h, temb, impl=impl)
+        h = call(mid["resnets"][0], h, temb, impl=impl)
         h = run_t2d(mid["attentions"][0], h)
-        h = mid["resnets"][1](h, temb, impl=impl)
+        h = call(mid["resnets"][1], h, temb, impl=impl)
 
         for blk in self.up_blocks:
             for j, res in enumerate(blk["resnets"]):
                 h = torch.cat([h, res_stack.pop()], dim=-1)
-                h = res(h, temb, impl=impl)
+                h = call(res, h, temb, impl=impl)
                 if "attentions" in blk:
                     h = run_t2d(blk["attentions"][j], h)
             if "upsample" in blk:

@@ -152,6 +152,21 @@ def lib() -> ctypes.CDLL:
         return _libs[defines]
 
 
+def no_autograd(name: str, *tensors) -> None:
+    """Raises where autograd would record a launch of kernel ``name``: grad
+    mode on and an input that requires grad. A kernel writes a fresh
+    output that autograd cannot see, so every gradient through the call
+    would be dropped without a word. The sites differentiate through
+    ``ops.autograd``, whose Functions launch with grad mode off."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: a kernel launch under autograd with an input that "
+            f"requires grad; call it through ops.autograd (its VJP) or "
+            f"under torch.no_grad()")
+
+
 def ptr(t, name: str, dtype, device=None, *, contiguous: bool = True) -> int:
     """Device pointer of ``t`` after the checks every kernel needs: a CUDA
     tensor of ``dtype`` (on ``device`` when given), contiguous unless the

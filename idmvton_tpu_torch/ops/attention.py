@@ -32,7 +32,12 @@ from idmvton_tpu_torch.ops.dispatch import narrow, resolve
 
 def softmax_(x):
     """In-place softmax over the last axis (max-subtracted, as
-    ``jax.nn.softmax``); saves a second logits-sized buffer."""
+    ``jax.nn.softmax``); saves a second logits-sized buffer. Where
+    autograd records it (training) the same operations run out of place,
+    the max held constant as ``jax.nn.softmax`` holds it."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        e = (x - x.amax(-1, keepdim=True).detach()).exp()
+        return e / e.sum(-1, keepdim=True)
     x.sub_(x.amax(-1, keepdim=True))
     x.exp_()
     x.div_(x.sum(-1, keepdim=True))
@@ -54,9 +59,8 @@ def sdpa(q, k, v, *, scale: Optional[float] = None,
          impl: Optional[str] = None):
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if resolve(impl, q) == "cuda":
-        from idmvton_tpu_torch.ops.cuda_attention import (
-            XLA_KV_CUTOFF, flash_attention,
-        )
+        from idmvton_tpu_torch.ops.autograd import flash_attention
+        from idmvton_tpu_torch.ops.cuda_attention import XLA_KV_CUTOFF
         if k.shape[1] > XLA_KV_CUTOFF:   # the kernel: bf16 operands
             return flash_attention(narrow(q), narrow(k), narrow(v),
                                    scale=scale).to(q.dtype)
@@ -71,9 +75,8 @@ def concat_kv_attention(q, k, v, k_ref, v_ref, *,
     equals the reference's ``attn(cat([x, g]))[:, :N]``."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if resolve(impl, q) == "cuda":
-        from idmvton_tpu_torch.ops.cuda_attention import (
-            XLA_KV_CUTOFF, flash_attention_concat_kv,
-        )
+        from idmvton_tpu_torch.ops.autograd import flash_attention_concat_kv
+        from idmvton_tpu_torch.ops.cuda_attention import XLA_KV_CUTOFF
         if k.shape[1] + k_ref.shape[1] > XLA_KV_CUTOFF:   # the kernel
             return flash_attention_concat_kv(
                 *(narrow(t) for t in (q, k, v, k_ref, v_ref)),

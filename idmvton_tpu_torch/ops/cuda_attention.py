@@ -270,6 +270,7 @@ def _flash_launch(q, k, v, scale, tile=None, k_ref=None, v_ref=None):
     """Launches the kernel on (B, S, H, D) views, over k / v then (when
     given) k_ref / v_ref; ``tile`` forces the plan's (BKV, consumer
     warpgroups), as scripts/torch_attention_tiles.py does."""
+    _build.no_autograd("flash_attention", q, k, v, k_ref, v_ref)
     b, sq, heads, d = q.shape
     if d % 8 or not 8 <= d <= 128:
         raise ValueError(f"flash_attention kernel: head dim {d} (a multiple "
@@ -492,6 +493,7 @@ def _gemm_launch(qkv, kv_ref, heads, scale, sink_tokens, uncond_rows,
     """Launches the kernel on a to_qkv output; ``tile`` forces the plan's
     (BKV, consumer warpgroups), as scripts/torch_attention_tiles.py
     does."""
+    _build.no_autograd("flash_attention_gemm", qkv, kv_ref)
     b, n, three_hd = qkv.shape
     hd = three_hd // 3
     d = hd // heads
@@ -630,6 +632,7 @@ def cross_attention_small_kv(q, kv, kv_ip=None, *, heads: int,
     the fused to_kv output [K | V]; kv_ip (B, S_ip, 2*H*D) or None. All
     bf16; returns (B, N, H*D) bf16. The launch geometry is
     ``cross_attention_plan``'s."""
+    _build.no_autograd("cross_attention_small_kv", q, kv, kv_ip)
     b, n, hd = q.shape
     d = hd // heads
     if hd != heads * d or d not in KERNEL_HEAD_DIMS or hd % _LANE:

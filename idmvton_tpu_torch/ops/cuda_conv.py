@@ -196,7 +196,8 @@ def conv3x3_torch(x, w, b=None):
     return y
 
 
-def _launch(x, w, b):
+def _launch(x, w, b, name):
+    _build.no_autograd(name, x, w, b)
     plan = _cuda_plan(x, w)
     bsz, h, wdt, cin = x.shape
     cout = w.shape[-1]
@@ -216,7 +217,7 @@ def _launch(x, w, b):
 def conv3x3(x, w, b=None):
     """x (B,H,W,Cin) bf16 or fp32, w (3,3,Cin,Cout) bf16, b (Cout,) or
     None; the output has x's type."""
-    out = _launch(x, w, b)
+    out = _launch(x, w, b, "conv3x3")
     conv3x3.launches += 1
     return out
 
@@ -226,7 +227,7 @@ conv3x3.launches = 0
 
 def conv3x3_hblock(x, w, b=None):
     """Large-activation site of the same kernel (see the module doc)."""
-    out = _launch(x, w, b)
+    out = _launch(x, w, b, "conv3x3_hblock")
     conv3x3_hblock.launches += 1
     return out
 
@@ -274,6 +275,7 @@ def conv3x3_padacc(x, w, b=None):
     are dropped. The TPU shifted each tap's product into an fp32
     accumulator; here each tap reads its input rows shifted by
     dy * (W+2) + dx instead, so all taps share one accumulator."""
+    _build.no_autograd("conv3x3_padacc", x, w, b)
     plan = _cuda_plan(x, w, padded=True)
     bsz, h, wdt, cin = x.shape
     cout = w.shape[-1]

@@ -62,6 +62,7 @@ def layer_norm_torch(x, scale, bias, eps: float = 1e-5):
 def fused_layer_norm(x, scale, bias, eps: float = 1e-5):
     """x (..., C) bf16 with C % 128 == 0 up to 2048 (the kernel holds a row
     in registers); scale/bias (C,) fp32."""
+    _build.no_autograd("fused_layer_norm", x, scale, bias)
     c = x.shape[-1]
     m = x.numel() // c
     if c % _LANE or not 0 < c <= 16 * _LANE:
@@ -191,6 +192,7 @@ def ln_linear(x, gamma, beta, w, b=None, *, eps: float = 1e-5,
     the plan's BN, as scripts/torch_ln_tiles.py does. The sites send an
     int8-quantized projection to ``ln_linear_i8`` instead
     (``models.attention._ln_proj``)."""
+    _build.no_autograd("ln_linear", x, gamma, beta, w, b)
     c = x.shape[-1]
     m = x.numel() // c
     n_out = w.shape[1] // (2 if geglu else 1)
@@ -369,6 +371,7 @@ def ln_linear_i8(x, gamma, beta, w_i8, w_scale, b=None, *,
     of (N, C) storage; w_scale (N,) or (2N,) fp32; b the same shape, bf16 or
     fp32 (the kernel widens it), or None. Returns (..., N) bf16. ``tile``
     forces the plan's BN, as scripts/torch_ln_tiles.py --i8 does."""
+    _build.no_autograd("ln_linear_i8", x, gamma, beta, w_i8, w_scale, b)
     c = x.shape[-1]
     m = x.numel() // c
     n_out = w_i8.shape[1] // (2 if geglu else 1)
@@ -451,6 +454,7 @@ def gn_spatial_stats(x) -> Tuple[torch.Tensor, torch.Tensor]:
     Pass 1 writes fp32 partial sums per block of ``GN_ROWS_PER_BLOCK``
     spatial rows; pass 2 adds the partials in a fixed order, so the result
     is deterministic (no atomics)."""
+    _build.no_autograd("gn_spatial_stats", x)
     b, c = x.shape[0], x.shape[-1]
     s = x.numel() // (b * c)
     if c % 2 or -(-s // GN_ROWS_PER_BLOCK) > 65535 or b > 65535:

@@ -83,9 +83,14 @@ class TryonModels:
     calibration: Optional[dict] = None
 
     @staticmethod
-    def configs(tiny: bool = False):
-        if tiny:
-            return (UNetConfig.tiny("consume"), UNetConfig.tiny("emit"),
+    def configs(tiny: bool = False, micro: bool = False):
+        """The seven configs: full SDXL widths; the tiny test stack; or,
+        for ``micro``, the micro UNets (2 levels, depth 1) with the tiny
+        frozen towers (JAX ``TryonModels.init(micro=True)``: the mechanics
+        tests' stack)."""
+        if micro or tiny:
+            kind = UNetConfig.micro if micro else UNetConfig.tiny
+            return (kind("consume"), kind("emit"),
                     VAEConfig.tiny(), CLIPTextConfig.tiny(),
                     CLIPTextConfig.tiny(hidden_size=32, projection_dim=64,
                                         use_final_projection=True),
@@ -97,15 +102,16 @@ class TryonModels:
 
     @staticmethod
     def init(seed: Optional[int] = 0, *, tiny: bool = False,
-             cfgs: Optional[dict] = None, device="cuda",
-             dtype=torch.bfloat16) -> "TryonModels":
-        """Build the stack on ``device`` (full SDXL widths, the tiny test
-        configs, or ``cfgs``: field of ``CFG_FIELDS`` -> config, in place
-        of that choice). With a ``seed``, parameters get the JAX package's
-        random init from a generator on ``device``; with ``seed=None`` they
-        are left uninitialized for a loader to fill."""
+             micro: bool = False, cfgs: Optional[dict] = None,
+             device="cuda", dtype=torch.bfloat16) -> "TryonModels":
+        """Build the stack on ``device`` (full SDXL widths, the tiny or
+        micro test configs, or ``cfgs``: field of ``CFG_FIELDS`` -> config,
+        in place of that choice). With a ``seed``, parameters get the JAX
+        package's random init from a generator on ``device``; with
+        ``seed=None`` they are left uninitialized for a loader to fill."""
         device = torch.device(device)
-        u, g, v, tl, tg, vi, rs = (TryonModels.configs(tiny) if cfgs is None
+        u, g, v, tl, tg, vi, rs = (TryonModels.configs(tiny, micro)
+                                   if cfgs is None
                                    else (cfgs[f] for f in CFG_FIELDS))
         kw = dict(dtype=dtype, device=device)
         models = TryonModels(

@@ -1,0 +1,394 @@
+"""Fine-tuning: DDPM noise-prediction MSE on TryonNet (+ Resampler), every
+other tower frozen (counterpart of ``idmvton_tpu/train/train_step.py``;
+the reference trains only the hacked UNet, its Resampler included, with
+GarmentNet, the VAE and the text and image encoders frozen:
+train_xl.py:389-394).
+
+- The trainable parameters are fp32 masters (``TrainState.trainable``),
+  cast to the compute type inside the loss: ``torch.func.functional_call``
+  hands the modules fresh ``master.to(compute_dtype)`` tensors, so the
+  kernels read this step's weights (never ``layers.kernel_weight``'s
+  cached copies) and the casts are part of the autograd graph. The
+  serving modules' own parameters are not read by a step.
+- Remat (``UNet(..., remat=True)``: each resnet block and Transformer2D
+  under ``torch.utils.checkpoint``) replaces JAX's ``jax.checkpoint``
+  (train_xl.py:407-409's gradient checkpointing).
+- The frozen towers run under ``torch.no_grad()``: no gradient reaches
+  them, as none does in JAX, where they are not in ``trainable``.
+- The optimizer copies optax's semantics (``make_optimizer``): AdamW(lr
+  1e-5, b1 0.9, b2 0.999, wd 1e-2) after a global-norm clip of 1.0
+  (train_xl.py:270-274, 283-286, 752), the int8-moment AdamW, Adafactor,
+  and ``optax.MultiSteps`` gradient accumulation. Where JAX returns new
+  arrays, the port updates the masters and the optimizer state in place:
+  at full width one copy of the masters is 12 GB.
+- Optional min-SNR-gamma loss weighting (train_xl.py:726-742).
+
+One device: JAX's data parallelism (batch sharding, the all-reduce XLA
+inserts) is the parallelism slice's work.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+from torch.func import functional_call
+
+from idmvton_tpu_torch.diffusion.scheduler import DDPMScheduler
+from idmvton_tpu_torch.models.layers import resize_nearest, weights_changed_
+from idmvton_tpu_torch.pipeline.tryon import TryonModels, encode_prompt_sdxl
+from idmvton_tpu_torch.train import quant_opt
+
+TRAINABLE = ("unet", "resampler")
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int                # micro-steps taken (one a train_step call)
+    trainable: dict          # {"unet": {name: fp32}, "resampler": {...}}
+    opt_state: dict          # make_optimizer's state (Optimizer.init)
+
+
+def flat_params(trainable: dict) -> Dict[str, torch.Tensor]:
+    """``{"unet": {n: t}, ...}`` -> ``{"unet.n": t, ...}``."""
+    return {f"{c}.{n}": t for c in TRAINABLE for n, t in trainable[c].items()}
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares over every tensor, fp32
+    (``optax.global_norm``)."""
+    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+
+
+# ---------------------------------------------------------------------------
+# the optimizer (optax semantics, in place)
+# ---------------------------------------------------------------------------
+
+
+def _factored_dims(shape, min_dim_size_to_factor: int = 128):
+    """optax ``factorized._factored_dims``: the two largest axes (numpy's
+    argsort order) when the second largest has at least 128 entries."""
+    if len(shape) < 2:
+        return None
+    sorted_dims = np.argsort(shape)
+    if shape[sorted_dims[-2]] < min_dim_size_to_factor:
+        return None
+    return int(sorted_dims[-2]), int(sorted_dims[-1])
+
+
+class Optimizer:
+    """``make_optimizer``'s transformation: optax.chain(clip_by_global_norm,
+    inner) (optax ``_src/clipping.py``), wrapped as optax.MultiSteps for
+    ``accum_steps > 1``. ``init(params)`` gives the state; ``update_(grads,
+    state, params)`` consumes ``grads`` (they become the updates), updates
+    ``state`` and ``params`` in place and returns whether the parameters
+    moved (False mid-accumulation)."""
+
+    def __init__(self, kind: str, learning_rate: float, weight_decay: float,
+                 b1: float, b2: float, eps: float, max_grad_norm: float,
+                 accum_steps: int):
+        if kind not in ("adamw", "adamw8bit", "adafactor"):
+            raise ValueError(kind)
+        self.kind = kind
+        self.lr, self.wd = learning_rate, weight_decay
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.max_grad_norm = max_grad_norm
+        self.accum_steps = accum_steps
+
+    def _inner_init(self, params):
+        if self.kind == "adamw8bit":
+            return quant_opt.init_state(params)
+        if self.kind == "adamw":
+            zeros = lambda: {k: torch.zeros_like(p) for k, p in params.items()}
+            return {"count": 0, "mu": zeros(), "nu": zeros()}
+        # adafactor (optax ``factorized.scale_by_factored_rms.init_fn``)
+        v_row, v_col, v = {}, {}, {}
+        for k, p in params.items():
+            dims = _factored_dims(p.shape)
+            if dims is None:
+                v[k] = torch.zeros_like(p)
+            else:
+                d1, d0 = dims
+                v_row[k] = torch.zeros(np.delete(p.shape, d0).tolist(),
+                                       dtype=p.dtype, device=p.device)
+                v_col[k] = torch.zeros(np.delete(p.shape, d1).tolist(),
+                                       dtype=p.dtype, device=p.device)
+        return {"count": 0, "v_row": v_row, "v_col": v_col, "v": v}
+
+    def init(self, params: Dict[str, torch.Tensor]) -> dict:
+        inner = self._inner_init(params)
+        if self.accum_steps <= 1:
+            return inner
+        return {"mini_step": 0, "gradient_step": 0,
+                "acc": {k: torch.zeros_like(p) for k, p in params.items()},
+                "inner": inner}
+
+    @torch.no_grad()
+    def update_(self, grads: Dict[str, torch.Tensor], state: dict,
+                params: Dict[str, torch.Tensor]) -> bool:
+        if self.accum_steps <= 1:
+            self._step(grads, state, params)
+            return True
+        # optax.MultiSteps: a running mean of the micro-gradients, acc + (g
+        # - acc) / (n + 1); the clip and the inner update once, at the
+        # boundary, on the mean; zero updates before it
+        n = state["mini_step"]
+        for k, g in grads.items():
+            acc = state["acc"][k]
+            acc.add_((g - acc) / (n + 1))
+        if n < self.accum_steps - 1:
+            state["mini_step"] = n + 1
+            return False
+        self._step(state["acc"], state["inner"], params)
+        for acc in state["acc"].values():
+            acc.zero_()
+        state["mini_step"] = 0
+        state["gradient_step"] += 1
+        return True
+
+    def _step(self, grads, state, params):
+        # optax.clip_by_global_norm: g if |g| < max, else g / |g| * max
+        norm = global_norm(grads.values())
+        if not bool(norm < self.max_grad_norm):
+            for g in grads.values():
+                g.div_(norm).mul_(self.max_grad_norm)
+        getattr(self, f"_{self.kind}")(grads, state, params)
+        for k, p in params.items():
+            p.add_(grads[k])      # optax.apply_updates
+
+    def _adamw(self, grads, state, params):
+        """optax.adamw: scale_by_adam (eps_root 0), add_decayed_weights,
+        scale_by_learning_rate (optax ``_src/alias.py``,
+        ``_src/transform.py``)."""
+        b1, b2, eps = self.b1, self.b2, self.eps
+        count = state["count"] + 1
+        one = np.float32(1.0)
+        bc1 = float(one - np.float32(b1) ** np.float32(count))
+        bc2 = float(one - np.float32(b2) ** np.float32(count))
+        for k, g in grads.items():
+            mu, nu = state["mu"][k], state["nu"][k]
+            mu.copy_((1 - b1) * g + b1 * mu)
+            nu.copy_((1 - b2) * g.square() + b2 * nu)
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+            g.copy_((u + self.wd * params[k]) * -self.lr)
+        state["count"] = count
+
+    def _adamw8bit(self, grads, state, params):
+        """JAX ``quant_opt.adamw_int8``: scale_by_adam_int8, then
+        add_decayed_weights and scale(-lr)."""
+        quant_opt.adam_int8_(grads, state, b1=self.b1, b2=self.b2,
+                             eps=self.eps)
+        for k, g in grads.items():
+            g.copy_((g + self.wd * params[k]) * -self.lr)
+
+    def _adafactor(self, grads, state, params):
+        """optax.adafactor(learning_rate) with its defaults:
+        scale_by_factored_rms (factored for dims >= 128, decay 0.8, eps
+        1e-30), clip_by_block_rms(1.0), scale by the learning rate,
+        scale_by_param_block_rms (min 1e-3), scale(-1) (optax
+        ``_src/alias.py``, ``_src/factorized.py``)."""
+        count = state["count"]
+        t = np.float32(count + 1)
+        decay = np.float32(1.0) - t ** np.float32(-0.8)
+        d, d_ = float(decay), float(np.float32(1.0) - decay)
+        for k, g in grads.items():
+            gsq = g.square() + 1e-30
+            dims = _factored_dims(g.shape)
+            if dims is not None:
+                d1, d0 = dims
+                v_row, v_col = state["v_row"][k], state["v_col"][k]
+                v_row.copy_(d * v_row + d_ * gsq.mean(d0))
+                v_col.copy_(d * v_col + d_ * gsq.mean(d1))
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_col_mean = v_row.mean(reduced_d1, keepdim=True)
+                row_factor = (v_row / row_col_mean) ** -0.5
+                col_factor = v_col ** -0.5
+                u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+            else:
+                v = state["v"][k]
+                v.copy_(d * v + d_ * gsq)
+                u = g * v ** -0.5
+            u = u / torch.clamp(torch.sqrt(u.square().mean()) / 1.0, min=1.0)
+            u = u * self.lr
+            rms = torch.sqrt(params[k].square().mean())
+            u = u * torch.where(rms <= 1e-3, torch.full_like(rms, 1e-3), rms)
+            g.copy_(u * -1)
+        state["count"] = count + 1
+
+
+def make_optimizer(learning_rate: float = 1e-5, weight_decay: float = 1e-2,
+                   b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                   max_grad_norm: float = 1.0, optimizer: str = "adamw",
+                   accum_steps: int = 1) -> Optimizer:
+    """optimizer:
+    - "adamw": fp32 moments (reference default, train_xl.py:421).
+    - "adamw8bit": int8 block-quantized moments (``train/quant_opt.py``),
+      the reference's bitsandbytes --use_8bit_adam analog
+      (train_xl.py:412-420).
+    - "adafactor": factored second moment, ``optax.adafactor``'s defaults
+      (not ``torch.optim.Adafactor``, whose rule differs).
+
+    accum_steps > 1: gradient accumulation (train_xl.py:265,491): the
+    micro-gradients are averaged, then the clip and the update apply once
+    at the boundary (``optax.MultiSteps``)."""
+    return Optimizer(optimizer, learning_rate, weight_decay, b1, b2, eps,
+                     max_grad_norm, accum_steps)
+
+
+# ---------------------------------------------------------------------------
+# the state, the loss, the step
+# ---------------------------------------------------------------------------
+
+
+def init_train_state(models: TryonModels, tx: Optimizer) -> TrainState:
+    """fp32 masters of TryonNet's and the Resampler's parameters (copies:
+    the serving modules keep theirs) and the optimizer's state."""
+    trainable = {
+        c: {n: p.detach().to(torch.float32, copy=True).requires_grad_()
+            for n, p in getattr(models, c).named_parameters()}
+        for c in TRAINABLE}
+    return TrainState(step=0, trainable=trainable,
+                      opt_state=tx.init(flat_params(trainable)))
+
+
+@torch.no_grad()
+def copy_to_models_(models: TryonModels, trainable: dict,
+                    dtype=torch.bfloat16) -> TryonModels:
+    """The masters into the serving modules, rounded through ``dtype`` as
+    JAX's ``tree_map(astype(dtype))`` rounds every leaf (norm affines too),
+    then ``weights_changed_``: a captured step is captured again and no
+    cached bf16 copy is reused. For eval and checkpoints."""
+    for c in TRAINABLE:
+        module = getattr(models, c)
+        for n, p in module.named_parameters():
+            p.copy_(trainable[c][n].to(dtype))
+        weights_changed_(module)
+    return models
+
+
+def tryon_loss(trainable: dict, models: TryonModels,
+               scheduler: DDPMScheduler, batch: dict,
+               generator: Optional[torch.Generator] = None, *,
+               snr_gamma: Optional[float] = None,
+               compute_dtype=torch.bfloat16, impl: Optional[str] = None,
+               remat: bool = True, vae_sample: bool = True):
+    """One training loss (reference loop body, train_xl.py:598-742).
+
+    batch: person, mask, pose, cloth (B, H, W, C) in [-1, 1] / mask {0, 1};
+    prompt_ids_l/g, cloth_ids_l/g; ip_pixels. Optional "noise" (B, lh, lw,
+    4) fp32 and "timesteps" (B,) int override the in-loss draws (parity
+    and accumulation tests), as in JAX. ``generator`` (on the batch's
+    device) draws, in order: the VAE posteriors (one batched draw), the
+    noise, the timesteps."""
+    m = models
+    cd = compute_dtype
+    params = {c: {n: t.to(cd) if t.dtype == torch.float32 else t
+                  for n, t in trainable[c].items()} for c in TRAINABLE}
+    person = batch["person"].to(cd)
+    mask = batch["mask"].to(cd)
+    b, h, w = person.shape[:3]
+    dev = person.device
+    with torch.no_grad():
+        # the frozen towers: no gradient reaches them
+        masked = person * (mask < 0.5).to(cd)
+        model_input, masked_lat, pose_lat, cloth_lat = m.vae.encode(
+            torch.cat([person, masked, batch["pose"].to(cd),
+                       batch["cloth"].to(cd)]),
+            generator, sample=vae_sample).chunk(4)
+        lh, lw = model_input.shape[1:3]
+        mask_lat = resize_nearest(mask, (lh, lw))
+        prompt_embeds, pooled = encode_prompt_sdxl(
+            m, batch["prompt_ids_l"], batch["prompt_ids_g"])
+        cloth_embeds, _ = encode_prompt_sdxl(
+            m, batch["cloth_ids_l"], batch["cloth_ids_g"])
+        vis = m.vision(batch["ip_pixels"].to(cd))["penultimate"]
+
+    # the trainable Resampler -> IP tokens after the text context
+    ip_tokens = functional_call(m.resampler, params["resampler"], (vis,))
+    context = torch.cat([prompt_embeds.to(cd), ip_tokens], dim=1)
+
+    # noise and uniform timesteps (train_xl.py:619-627)
+    noise = batch.get("noise")
+    if noise is None:
+        noise = torch.randn(model_input.shape, generator=generator,
+                            device=dev, dtype=torch.float32)
+    noise = noise.to(dev, torch.float32)
+    t = batch.get("timesteps")
+    if t is None:
+        t = torch.randint(0, scheduler.cfg.num_train_timesteps, (b,),
+                          generator=generator, device=dev)
+    t_host = t.cpu()       # the scheduler's tables index on the host
+    t = t.to(dev)
+    noisy = scheduler.add_noise(model_input, noise.to(cd), t_host)
+    unet_in = torch.cat([noisy, mask_lat, masked_lat, pose_lat], dim=-1)
+
+    with torch.no_grad():
+        # GarmentNet: the cond batch only, no CFG zeros (train_xl.py:707-8)
+        _, feats = m.garm(cloth_lat, t, cloth_embeds, impl=impl)
+
+    time_ids = torch.tensor([h, w, 0, 0, h, w], dtype=cd,
+                            device=dev)[None].expand(b, 6)
+    pred, _ = functional_call(
+        m.unet, params["unet"], (unet_in, t, context),
+        dict(added_cond=(pooled, time_ids), garment_features=feats,
+             impl=impl, remat=remat))
+
+    pt = scheduler.cfg.prediction_type
+    if pt == "epsilon":
+        target = noise
+    elif pt == "v_prediction":
+        target = scheduler.get_velocity(model_input, noise.to(cd),
+                                        t_host).float()
+    elif pt == "sample":
+        # the reference subtracts the noise residual from the prediction
+        # before comparing to the clean latents (train_xl.py:718-721)
+        target = model_input.float()
+        pred = pred.float() - noise
+    else:
+        raise ValueError(pt)
+
+    per_example = (pred.float() - target).square().mean(dim=(1, 2, 3))
+    if snr_gamma is not None:
+        snr = scheduler.snr(t_host).to(dev)
+        if pt == "v_prediction":
+            # shift snr by +1 BEFORE both the min and the division
+            # (train_xl.py:732-737 divides min(snr + 1, g) by snr + 1);
+            # epsilon and sample use the plain snr
+            snr_v = snr + 1.0
+            weight = torch.clamp(snr_v, max=snr_gamma) / snr_v
+        else:
+            weight = (torch.clamp(snr, max=snr_gamma)
+                      / torch.clamp(snr, min=1e-8))
+        per_example = per_example * weight
+    return per_example.mean()
+
+
+def make_train_step(models: TryonModels, scheduler: DDPMScheduler,
+                    tx: Optimizer, *, snr_gamma: Optional[float] = None,
+                    compute_dtype=torch.bfloat16, impl: Optional[str] = None,
+                    remat: bool = True, vae_sample: bool = True):
+    """Returns ``train_step(state, batch, generator=None) -> (state,
+    metrics)``: one micro-step; with accumulation (``make_optimizer``
+    accum_steps > 1) the parameters change only at its boundary. The state
+    is updated in place and returned; metrics hold the loss and the global
+    norm of this micro-step's gradients, as 0-dim fp32 tensors."""
+
+    def train_step(state: TrainState, batch: dict,
+                   generator: Optional[torch.Generator] = None):
+        params = flat_params(state.trainable)
+        loss = tryon_loss(state.trainable, models, scheduler, batch,
+                          generator, snr_gamma=snr_gamma,
+                          compute_dtype=compute_dtype, impl=impl,
+                          remat=remat, vae_sample=vae_sample)
+        # a parameter the loss does not read gets a zero gradient, as in JAX
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for (k, p), g in zip(params.items(), torch.autograd.grad(
+                     loss, list(params.values()), allow_unused=True))}
+        gnorm = global_norm(grads.values())
+        tx.update_(grads, state.opt_state, params)
+        state.step += 1
+        return state, {"loss": loss.detach(), "grad_norm": gnorm}
+
+    return train_step

@@ -13,7 +13,10 @@ Counterpart of ``idmvton_tpu/weights/checkpoint.py``:
   ``load_jax_params`` from disk. JAX's orbax checkpoints are not read:
   ``save_diffusers`` is the bridge;
 - ``calibrate_attention_softmax``: the load-time fixed-shift softmax guard,
-  run by both loaders on the loaded weights before any step is captured.
+  run by both loaders on the loaded weights before any step is captured;
+- ``save_train_state`` / ``latest_train_state_step`` / ``load_train_state``:
+  the resumable fine-tuning state, in the port's own format (safetensors
+  and a JSON of the counters; JAX's is orbax's).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import glob
 import json
 import logging
 import os
+import shutil
 from typing import Optional
 
 import torch
@@ -357,3 +361,110 @@ def load_pipeline(path: str, dtype=torch.bfloat16, *, device="cuda",
     if calibrate:
         models.calibration = calibrate_attention_softmax(models)
     return models
+
+
+# ---------------------------------------------------------------------------
+# the train state (resumable fine-tuning)
+# ---------------------------------------------------------------------------
+
+
+def _flatten_state(tree, prefix, tensors: dict, scalars: dict):
+    """Nested dicts of tensors and ints -> ``tensors`` / ``scalars`` keyed
+    by "/"-joined paths (parameter names keep their dots)."""
+    for key, value in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(value, dict):
+            _flatten_state(value, path + "/", tensors, scalars)
+        elif isinstance(value, torch.Tensor):
+            tensors[path] = value
+        else:
+            scalars[path] = int(value)
+
+
+def _state_tree(state) -> dict:
+    return {"trainable": state.trainable, "opt_state": state.opt_state}
+
+
+def save_train_state(path: str, state, *, keep: int = 3) -> str:
+    """Writes ``state`` (a ``train.train_step.TrainState``: the fp32
+    masters, the optimizer's state, the step) as ``path/state_{step}``:
+    ``state.safetensors`` (every tensor under its "/"-joined path) beside
+    ``state.json`` (the step and the optimizer's integer counters), then
+    keeps the ``keep`` newest states. The port's own format: JAX's is
+    orbax's (``checkpoint.py:152-194``). The reference's
+    ``--resume_from_checkpoint`` is dead code (train_xl.py:259,469); here
+    resume is real. Returns the state's directory."""
+    os.makedirs(path, exist_ok=True)
+    tensors, scalars = {}, {}
+    _flatten_state(_state_tree(state), "", tensors, scalars)
+    final = os.path.join(path, f"state_{int(state.step)}")
+    tmp = final + ".tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    save_file(tensors, os.path.join(tmp, "state.safetensors"))
+    with open(os.path.join(tmp, "state.json"), "w") as f:
+        json.dump({"step": int(state.step), "scalars": scalars}, f,
+                  indent=1)
+    # a state appears whole or not at all
+    shutil.rmtree(final, ignore_errors=True)
+    os.replace(tmp, final)
+    steps = sorted(_state_steps(path))
+    for s in steps[:-keep]:
+        shutil.rmtree(os.path.join(path, f"state_{s}"), ignore_errors=True)
+    return final
+
+
+def _state_steps(path: str):
+    return [int(d.split("_")[1]) for d in os.listdir(path)
+            if d.startswith("state_") and d.split("_")[1].isdigit()]
+
+
+def latest_train_state_step(path: str) -> Optional[int]:
+    """The newest step ``save_train_state`` wrote under ``path``, or None."""
+    if not os.path.isdir(path):
+        return None
+    steps = _state_steps(path)
+    return max(steps) if steps else None
+
+
+def load_train_state(path: str, template, step: Optional[int] = None):
+    """The ``TrainState`` saved at ``step`` (the newest by default), in the
+    structure, types and devices of ``template`` (a state
+    ``init_train_state`` made for the same models and optimizer): every
+    tensor and counter of the template must be in the file, with its
+    shape. The masters require grad, as the template's."""
+    from idmvton_tpu_torch.train.train_step import TrainState
+    step = step if step is not None else latest_train_state_step(path)
+    if step is None:
+        raise FileNotFoundError(f"{path}: no train state")
+    root = os.path.join(path, f"state_{step}")
+    with open(os.path.join(root, "state.json")) as f:
+        meta = json.load(f)
+    tensors, scalars = {}, {}
+    _flatten_state(_state_tree(template), "", tensors, scalars)
+    missing = sorted(set(scalars) - set(meta["scalars"]))
+    with SafetensorsReader(os.path.join(root, "state.safetensors")) as r:
+        missing += sorted(k for k in tensors if k not in r)
+        if missing:
+            raise KeyError(f"{root}: not in the saved state: {missing[:8]}")
+        loaded = {}
+        for k, t in tensors.items():
+            v = r[k]
+            if tuple(v.shape) != tuple(t.shape) or v.dtype != t.dtype:
+                raise ValueError(f"{root}: {k} is {v.dtype} "
+                                 f"{tuple(v.shape)}, expected {t.dtype} "
+                                 f"{tuple(t.shape)}")
+            loaded[k] = v.to(t.device).requires_grad_(t.requires_grad)
+
+    def rebuild(tree, prefix):
+        out = {}
+        for key, value in tree.items():
+            p = f"{prefix}{key}"
+            out[key] = (rebuild(value, p + "/") if isinstance(value, dict)
+                        else loaded[p] if isinstance(value, torch.Tensor)
+                        else meta["scalars"][p])
+        return out
+
+    tree = rebuild(_state_tree(template), "")
+    return TrainState(step=int(meta["step"]), trainable=tree["trainable"],
+                      opt_state=tree["opt_state"])

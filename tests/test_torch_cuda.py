@@ -1032,3 +1032,303 @@ def test_nms_on_the_card_equals_the_cpu(dev, n, thr, score_thr, topk):
         assert a.device.type == "cuda"
         assert torch.equal(a.cpu(), b)
     assert (want[2] >= 0).sum() > 1
+
+
+# ---------------------------------------------------------------------------
+# training: the kernels' autograd Functions, a train step, and concurrent
+# demo requests (F9)
+# ---------------------------------------------------------------------------
+
+
+def _vjp_cases(dev):
+    """name -> (autograd entry, plain version, inputs, keywords) at small
+    shapes each kernel takes (bf16 operands, fp32 LayerNorm affines)."""
+    from idmvton_tpu_torch.ops import autograd as AG
+    g = torch.Generator(device=dev).manual_seed(21)
+    rn = lambda *s, **kw: _randn(g, *s, dev=dev, **kw)
+    f32 = dict(dtype=torch.float32)
+    x = rn(2, 40, 128)
+    gam, bet = rn(128, **f32) * 0.2 + 1.0, rn(128, **f32) * 0.1
+    w, wg = rn(128, 256, scale=128 ** -0.5), rn(128, 512, scale=128 ** -0.5)
+    w_i8, w_s = quantize_kernel_int8(w)
+    xc, k3 = rn(2, 8, 12, 128), rn(3, 3, 128, 128, scale=(9 * 128) ** -0.5)
+    return {
+        "ln_linear": (AG.ln_linear, cuda_norm.ln_linear_torch,
+                      (x, gam, bet, w, rn(256, scale=0.1)), {}),
+        "ln_linear_geglu": (AG.ln_linear, cuda_norm.ln_linear_torch,
+                            (x, gam, bet, wg, rn(512, scale=0.1)),
+                            {"geglu": True}),
+        "fused_layer_norm": (AG.fused_layer_norm,
+                             cuda_norm.layer_norm_torch, (x, gam, bet), {}),
+        "gn_spatial_stats": (AG.gn_spatial_stats,
+                             cuda_norm.gn_spatial_stats_torch,
+                             (rn(2, 8, 12, 64) + 0.3,), {}),
+        "conv3x3": (AG.conv3x3, cuda_conv.conv3x3_torch,
+                    (xc, k3, rn(128, scale=0.1)), {}),
+        "conv3x3_hblock": (AG.conv3x3_hblock, cuda_conv.conv3x3_torch,
+                           (xc, k3, rn(128, scale=0.1)), {}),
+        "conv3x3_padacc": (AG.conv3x3_padacc, cuda_conv.conv3x3_torch,
+                           (xc, k3, rn(128, scale=0.1)), {}),
+        "flash_attention_gemm": (AG.flash_attention_gemm,
+                                 cuda_attention.flash_attention_gemm_torch,
+                                 (rn(4, 64, 384), rn(2, 64, 256)),
+                                 {"heads": 2, "uncond_rows": 2}),
+        "ln_linear_i8": (AG.ln_linear_i8, cuda_norm.ln_linear_i8_torch,
+                         (x, gam, bet, w_i8, w_s, rn(256, scale=0.1)), {}),
+        "flash_attention": (AG.flash_attention,
+                            cuda_attention.flash_attention_torch,
+                            (rn(2, 300, 2, 64), rn(2, 300, 2, 64),
+                             rn(2, 300, 2, 64)), {}),
+        "flash_attention_concat_kv": (
+            AG.flash_attention_concat_kv,
+            cuda_attention.flash_attention_concat_kv_torch,
+            (rn(2, 200, 2, 64), rn(2, 200, 2, 64), rn(2, 200, 2, 64),
+             rn(2, 100, 2, 64), rn(2, 100, 2, 64)), {}),
+        "cross_attention_small_kv": (
+            AG.cross_attention_small_kv,
+            cuda_attention.cross_attention_small_kv_torch,
+            (rn(2, 64, 128), rn(2, 77, 256), rn(2, 16, 256)), {"heads": 2}),
+    }
+
+
+VJP_CASES = ["ln_linear", "ln_linear_geglu", "fused_layer_norm",
+             "gn_spatial_stats", "conv3x3", "conv3x3_hblock",
+             "conv3x3_padacc", "flash_attention_gemm", "ln_linear_i8",
+             "flash_attention", "flash_attention_concat_kv",
+             "cross_attention_small_kv"]
+
+
+@pytest.mark.parametrize("name", VJP_CASES)
+def test_kernel_gradient_matches_plain_autograd(dev, name):
+    """Each kernel through its autograd Function on the card: it launches
+    the kernel once, its output within the bf16 bound of the plain
+    version's, and every input's gradient within the bf16 bound of plain
+    autograd's (the backward is the plain version's VJP; the two differ by
+    the forward's rounding where a VJP reads it, and by cuDNN / cuBLAS
+    summation order). #8 differentiates the dequantized product, as JAX's
+    VJP does: the plain side is ``ln_linear_torch`` on the dequantized
+    weight; no gradient reaches its int8 weight or scales."""
+    from idmvton_tpu_torch.ops.quant import dequantize_kernel_int8
+    from idmvton_tpu_torch.pipeline.graph import launch_counters
+    entry, plain, ins, kw = _vjp_cases(dev)[name]
+    leaf = lambda t: (t.detach().clone().requires_grad_()
+                      if t.is_floating_point() else t)
+    ins_k = [leaf(t) for t in ins]
+    counters = launch_counters()
+    before = {k: f.launches for k, f in counters.items()}
+    out = entry(*ins_k, **kw)
+    launched = {k: f.launches - before[k] for k, f in counters.items()
+                if f.launches != before[k]}
+    kernel = {"ln_linear_geglu": "ln_linear",
+              "flash_attention_concat_kv": "flash_attention"}.get(name, name)
+    assert launched == {kernel: 1}, launched
+    ins_p = [leaf(t) for t in ins]
+    if name == "ln_linear_i8":
+        wd = dequantize_kernel_int8(ins[3], ins[4], torch.bfloat16)
+        want = cuda_norm.ln_linear_torch(ins_p[0], ins_p[1], ins_p[2], wd,
+                                         ins_p[5])
+        pairs = [(ins_k[i], ins_p[i]) for i in (0, 1, 2, 5)]
+        assert ins_k[4].grad is None
+    else:
+        want = plain(*ins_p, **kw)
+        pairs = [(a, b) for a, b in zip(ins_k, ins_p) if a.requires_grad]
+    outs = out if isinstance(out, tuple) else (out,)
+    wants = want if isinstance(want, tuple) else (want,)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cots = [torch.randn(o.shape, generator=gen, device=dev).to(o.dtype)
+            for o in outs]
+    got_g = torch.autograd.grad(outs, [a for a, _ in pairs], cots)
+    want_g = torch.autograd.grad(wants, [b for _, b in pairs], cots)
+    tol = SUM_TOL if name == "gn_spatial_stats" else BF16_TOL
+    if name != "ln_linear_i8":
+        for o, w_ in zip(outs, wants):
+            assert _rel_err(o.detach(), w_.detach()) <= tol
+    for gk, gp in zip(got_g, want_g):
+        assert gk.dtype == gp.dtype
+        assert _rel_err(gk, gp) <= BF16_TOL
+
+
+def test_unwrapped_kernel_under_grad_raises_on_the_card(dev):
+    """A kernel wrapper called with grad mode on and an input that requires
+    grad raises instead of launching (its output would carry no grad_fn and
+    the gradient through it would be dropped); #10, which has no VJP,
+    raises the same way; under ``no_grad`` both launch."""
+    x = _randn(torch.Generator(device=dev).manual_seed(1), 2, 40, 128,
+               dev=dev).requires_grad_()
+    gam = torch.ones(128, device=dev)
+    w = _randn(torch.Generator(device=dev).manual_seed(2), 128, 128, dev=dev)
+    qkv = x.reshape(2, 40, 2, 64)[:, :, None].expand(2, 40, 3, 2, 64)
+    qkv = torch.cat([qkv] * 8, 1)
+    with pytest.raises(RuntimeError, match="under autograd"):
+        cuda_norm.ln_linear(x, gam, gam * 0, w)
+    with pytest.raises(RuntimeError, match="under autograd"):
+        cuda_attention.flash_attention_fused_qkv(qkv, 64)
+    with torch.no_grad():
+        assert cuda_norm.ln_linear(x, gam, gam * 0, w).shape == (2, 40, 128)
+        assert cuda_attention.flash_attention_fused_qkv(
+            qkv.contiguous(), 64).shape == (2, 64, 2, 64)
+
+
+def test_tiny_train_steps_cuda_match_torch(dev):
+    """Two adamw steps of the tiny stack (bf16, 256x192, remat) with
+    ``impl="cuda"``, and the same masters' loss with ``impl="torch"`` before
+    each: the losses within 3e-2 relative (bf16 kernels against the plain
+    path through two UNets, the differences of the step gates), the
+    gradient norms within 5e-2, every trainable leaf's gradient within
+    0.1 of its scale on average (mean |diff| / mean |torch|). The second
+    forward reads the first step's in-place update: a stale bf16 weight
+    copy at a kernel site would leave the kernel path on the old weights
+    (its loss then off by the step's whole change). The step launches the
+    bf16 path's kernels and #9 (the 64-wide level's 384 keys); the torch
+    impl only the VAE encode's (the frozen VAE takes no impl, as JAX's
+    ``vae_encode``); with remat TryonNet's launch again in the backward's
+    recompute, so the remat step launches more than the one without."""
+    from idmvton_tpu_torch.core.config import SchedulerConfig
+    from idmvton_tpu_torch.diffusion.scheduler import DDPMScheduler
+    from idmvton_tpu_torch.pipeline.graph import launch_counters
+    from idmvton_tpu_torch.pipeline.tryon import TryonModels
+    from idmvton_tpu_torch.train.train_step import (
+        flat_params, init_train_state, make_optimizer, make_train_step,
+        tryon_loss,
+    )
+    models = TryonModels.init(0, tiny=True, device=dev, dtype=torch.bfloat16)
+    sched = DDPMScheduler(SchedulerConfig.train())
+    g = torch.Generator(device=dev).manual_seed(3)
+    b, h, w = 1, 256, 192
+    img = lambda: torch.rand(b, h, w, 3, generator=g, device=dev) * 2 - 1
+    ids = lambda: torch.randint(0, 1000, (b, 7), generator=g, device=dev)
+    batch = dict(person=img(), pose=img(), cloth=img(),
+                 mask=(torch.rand(b, h, w, 1, generator=g, device=dev)
+                       > 0.5).float(),
+                 prompt_ids_l=ids(), prompt_ids_g=ids(), cloth_ids_l=ids(),
+                 cloth_ids_g=ids(),
+                 ip_pixels=torch.rand(b, 28, 28, 3, generator=g,
+                                      device=dev) * 2 - 1,
+                 noise=torch.randn(b, h // 8, w // 8, 4, generator=g,
+                                   device=dev),
+                 timesteps=torch.tensor([437], device=dev))
+    tx = make_optimizer(learning_rate=1e-4)
+    state = init_train_state(models, tx)
+    counters = launch_counters()
+
+    def grads(impl, remat=True):
+        params = flat_params(state.trainable)
+        for f in counters.values():
+            f.launches = 0
+        loss = tryon_loss(state.trainable, models, sched, batch,
+                          impl=impl, remat=remat, vae_sample=False)
+        gs = torch.autograd.grad(loss, list(params.values()),
+                                 allow_unused=True)
+        return (float(loss.detach()), dict(zip(params, gs)),
+                {k: f.launches for k, f in counters.items()})
+
+    step = make_train_step(models, sched, tx, impl="cuda", vae_sample=False)
+    for i in range(2):
+        loss_c, g_c, n_c = grads("cuda")
+        loss_t, g_t, n_t = grads("torch")
+        assert {k for k, n in n_t.items() if n} == {"conv3x3",
+                                                     "gn_spatial_stats"}, n_t
+        assert all(n_c[k] > n_t[k] for k in n_t if n_t[k]), (n_c, n_t)
+        for k in ("conv3x3", "ln_linear", "flash_attention_gemm",
+                  "flash_attention", "gn_spatial_stats"):
+            assert n_c[k] > 0, n_c
+        assert abs(loss_c - loss_t) <= 3e-2 * abs(loss_t), (i, loss_c,
+                                                             loss_t)
+        norm = lambda gs: float(torch.sqrt(sum(
+            v.float().square().sum() for v in gs.values() if v is not None)))
+        assert abs(norm(g_c) - norm(g_t)) <= 5e-2 * norm(g_t)
+        for k, gt in g_t.items():
+            if gt is None or float(gt.abs().mean()) == 0:
+                continue
+            rel = float((g_c[k] - gt).abs().mean() / gt.abs().mean())
+            assert rel <= 0.1, (i, k, rel)
+        state, metrics = step(state, batch)
+        assert torch.isfinite(metrics["loss"]) and state.step == i + 1
+    _, _, n_plain = grads("cuda", remat=False)
+    assert sum(n_c.values()) > sum(n_plain.values()), (n_c, n_plain)
+
+
+def test_concurrent_demo_requests_keep_exact_launch_counts(dev):
+    """F9: one thread serves try-on requests on the tiny service, each the
+    first of its graph key (the captures are dropped in between), while a
+    second thread loops over the service's three preprocessing nets
+    (``auto_mask``: OpenPose and SCHP; ``pose_image``: DensePose). Both
+    finish without error, and the launch counters hold exactly what the
+    requests and the loops launch when run alone: a launch of the other
+    thread inside a capture would be counted again at every replay, and an
+    allocation of it would break the capture (``capture_error_mode=
+    "global"``)."""
+    import threading
+
+    from idmvton_tpu_torch.cli.demo import TryonService, parse_args
+    from idmvton_tpu_torch.data.image import clip_preprocess
+    from idmvton_tpu_torch.pipeline.graph import launch_counters
+    from PIL import Image
+    import numpy as np
+    svc = TryonService(parse_args(["--tiny", "--device", "cuda", "--width",
+                                   "384", "--height", "512"]))
+    rng = np.random.default_rng(8)
+    person = rng.integers(0, 255, (512, 384, 3), np.uint8)
+    cloth = rng.integers(0, 255, (512, 384, 3), np.uint8)
+    ip = clip_preprocess(Image.fromarray(cloth)).astype(np.float32)
+    drawn = np.zeros((512, 384), bool)
+    drawn[100:400, 80:300] = True
+    counters = launch_counters()
+
+    def counts():
+        torch.cuda.synchronize(dev)
+        return {k: f.launches for k, f in counters.items()}
+
+    def request():
+        svc.pipe.graphs.graphs.clear()     # the next step captures again
+        svc.tryon_arrays(person, cloth, ip, "shirt", mask=drawn, steps=3)
+
+    def preprocess():
+        svc.auto_mask(person)
+        svc.pose_image(person)
+
+    request()           # warm: the build, lazy inits, cuBLAS workspaces
+    preprocess()
+    alone = {}
+    for name, fn in (("request", request), ("preprocess", preprocess)):
+        for f in counters.values():
+            f.launches = 0
+        fn()
+        alone[name] = counts()
+    assert sum(alone["request"].values()) > 0
+    assert sum(alone["preprocess"].values()) > 0
+
+    for f in counters.values():
+        f.launches = 0
+    done, errors, loops = threading.Event(), [], [0]
+
+    def requests():
+        try:
+            for _ in range(4):
+                request()
+        except BaseException as e:   # reported by the assert below
+            errors.append(e)
+        finally:
+            done.set()
+
+    def preprocessing():
+        try:
+            while not done.is_set():
+                preprocess()
+                loops[0] += 1
+        except BaseException as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=preprocessing),
+               threading.Thread(target=requests)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        assert not t.is_alive()
+    assert not errors, errors
+    assert loops[0] >= 1
+    got = counts()
+    want = {k: 4 * alone["request"][k] + loops[0] * alone["preprocess"][k]
+            for k in got}
+    assert got == want, (got, want, loops[0])

@@ -363,3 +363,39 @@ def test_service_runs_on_the_card_unless_asked():
         pytest.skip("a card is visible")
     with pytest.raises(RuntimeError, match="--device cpu"):
         tdemo.TryonService(_args())
+
+
+def test_concurrent_requests_equal_sequential(services):
+    """Two threads call ``tryon_arrays`` at once, one with the auto mask
+    (OpenPose, SCHP) and one with a drawn mask; each result and preview
+    equals the same request served alone, bit for bit (the service holds
+    one re-entrant lock over a request's card work, so the two run one
+    after the other; on the card that keeps a first request's step capture
+    clear of the other's launches, ``test_torch_cuda.py``)."""
+    from idmvton_tpu_torch.data.image import clip_preprocess
+    tsvc = services[1]
+    rng = np.random.default_rng(31)
+    person = rng.integers(0, 255, (64, 48, 3), np.uint8)
+    cloth = rng.integers(0, 255, (64, 48, 3), np.uint8)
+    ip = clip_preprocess(Image.fromarray(cloth)).astype(np.float32)
+    small = np.asarray(Image.fromarray(person).resize((384, 512)))
+    drawn = np.zeros((64, 48), bool)
+    drawn[10:50, 8:40] = True
+    requests = [dict(small=small, seed=5), dict(mask=drawn, seed=6)]
+    call = lambda r: tsvc.tryon_arrays(person, cloth, ip, "shirt", steps=1,
+                                       **r)
+    want = [call(r) for r in requests]
+    got = [None, None]
+
+    def serve(i):
+        got[i] = call(requests[i])
+
+    threads = [threading.Thread(target=serve, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        assert not t.is_alive()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g[0], w[0])
+        np.testing.assert_array_equal(g[1], w[1])
