@@ -106,7 +106,23 @@ failure:
    (c) ``cli.train.main --micro`` on a synthetic VITON-HD tree: 2
    optimizer steps of 2 micro-batches, checkpoints, eval images, then a
    resumed run to step 3;
-11. print a JSON line with each kernel's result, then the device line.
+11. DensePose detection training (``preprocess/densepose/train.py``) at
+   the served config, B = 2 at 800x1088 from a seed (3 persons an image,
+   128 points, 56x56 masks): one step's losses and four leaves' gradients
+   ``impl="cuda"`` against ``impl="torch"`` on the same uniforms and
+   proposals (``DP_TRAIN_TOLS``), the sampled sets identical,
+   ``nms_topk`` alone over the 217,413 boxes of all anchors, then three
+   masked SGD steps, each finite with exactly ``DP_TRAIN_CONV`` launches
+   of #5 / #6, the frozen leaves bitwise unchanged; ms a step and peak
+   memory;
+12. ``Face`` at 384 and ``Hand`` at its four scales
+   (``preprocess/openpose_extra.py``) on seeded crops: heatmaps ``cuda``
+   against ``torch`` (``FACE_HAND_TOLS``), the peaks, exact launches a
+   call (``FACE_CONV``, ``HAND_CONV``);
+13. ``inference_on_dataset`` with ``DensePose.detect`` over three images,
+   scored by the host runtime (``runtime/native.py``, built with g++ from
+   the checkout): 12 finite stats;
+14. print a JSON line with each kernel's result, then the device line.
 """
 
 from __future__ import annotations
@@ -205,6 +221,11 @@ PATH_KERNELS = {
     "train": BF16_PATH,
     # cli/train.py --micro at TRAIN_CLI_SIZE, two runs (train, resume)
     "train_cli": ("conv3x3", "gn_spatial_stats", "flash_attention"),
+    # the fp32 preprocessing nets: the DensePose R-CNN's train steps, Face
+    # and Hand, DensePose.detect under inference_on_dataset
+    "densepose_train": ("conv3x3", "conv3x3_hblock"),
+    "face_hand": ("conv3x3", "conv3x3_hblock"),
+    "evaluate": ("conv3x3", "conv3x3_hblock"),
 }
 # the replayed step's timing (phase 4): steps a reading
 TIMED_STEPS = 5
@@ -605,7 +626,14 @@ def kernel_cases(dev):
              conv_case(CV.conv3x3, 1, 23, 18, 512, 512, torch.float32),
              conv_case(CV.conv3x3, 1, 23, 18, 128, 128, torch.float32),
              conv_case(CV.conv3x3, 1, 32, 32, 256, 256, torch.float32),
-             conv_case(CV.conv3x3, 20, 28, 28, 512, 512, torch.float32)]),
+             conv_case(CV.conv3x3, 20, 28, 28, 512, 512, torch.float32),
+             # the DensePose train step (fp32, B = 2 at 800x1088): res3's
+             # conv2, the FPN / RPN / decoder at P3, an image's densepose
+             # slab; FaceNet's 96x96 level (Face at 384)
+             conv_case(CV.conv3x3, 2, 100, 136, 128, 128, torch.float32),
+             conv_case(CV.conv3x3, 2, 100, 136, 256, 256, torch.float32),
+             conv_case(CV.conv3x3, 16, 28, 28, 512, 512, torch.float32),
+             conv_case(CV.conv3x3, 1, 96, 96, 256, 256, torch.float32)]),
         ("conv3x3_hblock", csrc + "conv3x3.cu",
          "idmvton_tpu/ops/pallas_conv.py:187", "F.conv2d (cuDNN)", [
              conv_case(CV.conv3x3_hblock, 6, 1024, 768, 128, 128),
@@ -617,6 +645,11 @@ def kernel_cases(dev):
                        torch.float32),
              # the demo's DensePose FPN P2 level (fp32)
              conv_case(CV.conv3x3_hblock, 1, 272, 200, 256, 256,
+                       torch.float32),
+             # the DensePose train step's P2 at B = 2; Hand's conv2_2 at 736
+             conv_case(CV.conv3x3_hblock, 2, 200, 272, 256, 256,
+                       torch.float32),
+             conv_case(CV.conv3x3_hblock, 1, 368, 368, 128, 128,
                        torch.float32)]),
         ("flash_attention_gemm", csrc + "flash_attention_gemm.cu",
          "idmvton_tpu/ops/pallas_attention.py:356", sdpa, [
@@ -1840,6 +1873,364 @@ def check_train_cli(wrappers):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+
+# ---------------------------------------------------------------------------
+# phase 11: DensePose detection training; phase 12: Face and Hand; phase 13:
+# detection evaluation
+# ---------------------------------------------------------------------------
+
+# The R-50-FPN trained at its served config (DensePoseConfig(),
+# DetectionTrainConfig(): RPN 256 and ROI 512 an image, 1000 post-NMS
+# proposals over every anchor, a 16-slot densepose slab, the 8x512 head at
+# heatmap 112), B images of DP_TRAIN_HW with G persons each (P annotated
+# points, an M x M mask)
+DP_TRAIN_HW = (800, 1088)
+DP_TRAIN_B, DP_TRAIN_G, DP_TRAIN_P, DP_TRAIN_M = 2, 3, 128, 56
+DP_TRAIN_STEPS = 3
+# The conv sites of one train step, read from the code (3x3, stride 1,
+# SAME, Cin and Cout >= 128, W >= 8; from 32 MiB an fp32 image conv3x3_hblock):
+# res3-res5's conv2 (4 + 6 + 3), the FPN outputs P3-P5 (3), the RPN conv on
+# P3-P6 (4), the decoder's 1 + 2 + 3 above P2 and the densepose head's 8
+# convs on each image's slab (2 x 8): 42; the FPN output, the RPN conv and
+# the decoder conv at P2 (200x272x256, 53 MiB): 3. The forward launches
+# them once under autograd; the backward is the plain VJP (no kernel).
+DP_TRAIN_CONV = {"conv3x3": 42, "conv3x3_hblock": 3}
+# one train step impl="cuda" against impl="torch" (fp32 plain, TF32 off) on
+# the same parameters, uniforms and (replayed) proposals: each loss's
+# relative difference, and (max rel, mean rel) on the gradients of
+# DP_TRAIN_LEAVES (kernel sites: res3's conv2, the FPN output at P2 (#6),
+# the RPN conv, the head's last conv). The kernels narrow fp32 x to bf16
+# at 45 sites. First reading (an H100 80GB HBM3 at 700 W, twice the same):
+# losses rel 3.7e-7 (loss_densepose_I) to 2.4e-3 (loss_cls); gradients max
+# rel 1.9e-2 to 2.8e-2, mean rel 7.2e-3 to 3.0e-2 (res3's conv2). The
+# bounds sit at about 3-4x those.
+DP_TRAIN_TOLS = {"loss": 1e-2, "grads": (1e-1, 1e-1)}
+DP_TRAIN_LEAVES = ("backbone.res3.0.conv2.conv.kernel", "fpn.output.0.kernel",
+                   "rpn.conv.kernel", "dp_head.convs.7.kernel")
+# Face at 384 and Hand at its four scales (184 / 368 / 552 / 736): the
+# trunk's conv2_2 .. conv5_3_CPM, 12 sites a net call (read on an H100);
+# of Hand's 48, five inputs reach 32 MiB and take conv3x3_hblock: conv2_2
+# at 552 (276^2 x 128 fp32) and at 736 (368^2 x 128), conv3_2-3_4 at 736
+# (184^2 x 256)
+FACE_CONV = {"conv3x3": 12}
+HAND_CONV = {"conv3x3": 43, "conv3x3_hblock": 5}
+# the heatmaps impl="cuda" against impl="torch": (max rel, mean rel), and
+# the share of peaks at the same pixel from below. First reading (an H100
+# 80GB HBM3 at 700 W, random biases): Face max rel 2.3e-4, mean rel
+# 9.1e-5, 38 of 71 channels above threshold, every peak equal; Hand 2.5e-4
+# / 1.0e-4, 8 of 21 parts found, every peak equal. The bounds sit at about
+# 4x the continuous readings; a flipped peak of a near-tie costs 1/71 or
+# 1/21 of the rate.
+FACE_HAND_TOLS = {"face": (1e-3, 4e-4), "hand": (1e-3, 4e-4), "peaks": 0.9}
+# DensePose.detect over three seeded images through inference_on_dataset
+# (short edge 800 of 480x640: 800x1067 padded to 800x1088): DEMO_CONV's
+# R-CNN sites an image
+EVAL_IMAGES = 3
+
+
+def dp_train_batch(dev, seed):
+    """DP_TRAIN_B mean-subtracted BGR images and their ground truth, drawn
+    on the card: G person boxes an image, P points in each (fine labels
+    0-24, U / V in [0, 1)), an elliptic M x M mask each."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    (h, w), b, n, p, m = DP_TRAIN_HW, DP_TRAIN_B, DP_TRAIN_G, DP_TRAIN_P, \
+        DP_TRAIN_M
+    u = lambda *shape: torch.rand(shape, generator=g, device=dev)
+    mean = torch.tensor([103.530, 116.280, 123.675], device=dev)
+    images = u(b, h, w, 3) * 255 - mean
+    bw, bh = (0.15 + 0.25 * u(b, n)) * w, (0.3 + 0.4 * u(b, n)) * h
+    x1, y1 = u(b, n) * (w - bw), u(b, n) * (h - bh)
+    yy, xx = torch.meshgrid(torch.linspace(-1, 1, m, device=dev),
+                            torch.linspace(-1, 1, m, device=dev),
+                            indexing="ij")
+    radius = 0.6 + 0.35 * u(b, n, 1, 1)
+    gts = {"boxes": torch.stack([x1, y1, x1 + bw, y1 + bh], -1),
+           "valid": torch.ones(b, n, dtype=torch.bool, device=dev),
+           "dp_x": x1[..., None] + u(b, n, p) * bw[..., None],
+           "dp_y": y1[..., None] + u(b, n, p) * bh[..., None],
+           "dp_i": torch.randint(0, 25, (b, n, p), generator=g, device=dev),
+           "dp_u": u(b, n, p), "dp_v": u(b, n, p),
+           "dp_pt_valid": torch.ones(b, n, p, dtype=torch.bool, device=dev),
+           "dp_mask": (xx ** 2 + yy ** 2)[None, None] < radius ** 2}
+    return images, gts
+
+
+def check_dp_train(wrappers, dev, card):
+    """Phase 11: the DensePose R-CNN (stem scaled to the mean-subtracted
+    pixels, as phase 6b) trained at DP_TRAIN_HW, batch DP_TRAIN_B: one
+    step's losses and four leaves' gradients impl="cuda" against
+    impl="torch" on the same uniforms, the torch run replaying the cuda
+    run's proposals (NMS over 217,413 boxes ranks near-equal scores by
+    bf16 rounding), the sampled sets identical; nms_topk alone on one
+    image's boxes; then DP_TRAIN_STEPS masked SGD steps through
+    make_detection_train_step, each finite and launching exactly
+    DP_TRAIN_CONV, stem, res2 and every frozen BN bitwise unchanged.
+    Returns the steps' launch counts."""
+    import gc
+    import torch
+    from idmvton_tpu_torch.ops.nms import nms_topk
+    from idmvton_tpu_torch.preprocess.densepose import rcnn
+    from idmvton_tpu_torch.preprocess.densepose import train as dt
+    t0 = time.perf_counter()
+    cfg, tcfg = rcnn.DensePoseConfig(), dt.DetectionTrainConfig()
+    model = rcnn.init_densepose_rcnn(SEED + 60, cfg, device=dev)
+    with torch.no_grad():
+        model.backbone.stem.conv.kernel.div_(50.0)
+    params = dt.detection_params(model)
+    tx = dt.make_detection_optimizer(tcfg, params)
+    images, gts = dp_train_batch(dev, SEED + 61)
+    torch.cuda.synchronize()
+    n_train = sum(p.numel() for k, p in params.items() if tx.trains(k))
+    log(f"dp train: R-50-FPN {sum(p.numel() for p in params.values()) / 1e6:.2f}"
+        f" M parameters ({n_train / 1e6:.2f} M trained), batch "
+        f"{tuple(images.shape)}, {DP_TRAIN_G} persons an image, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # the uniforms both runs sample with
+    with torch.no_grad():
+        _, anchors, obj, dl = dt._features(model, images, "cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 62)
+    n_anchors, n_prop = anchors.shape[0], cfg.rpn_post_nms_topk + DP_TRAIN_G
+    uniforms = [[torch.rand(n, generator=g, device=dev)
+                 for n in (n_anchors, n_prop, n_prop)]
+                for _ in range(DP_TRAIN_B)]
+    # nms_topk alone on image 0's boxes: the trainer's NMS over all anchors
+    prop = rcnn.clip_boxes(rcnn.apply_deltas(anchors, dl[0],
+                                             (1.0,) * 4), DP_TRAIN_HW)
+    secs, rec = [], {}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        nms_topk(prop, obj[0], iou_threshold=cfg.rpn_nms_thresh,
+                 topk=cfg.rpn_post_nms_topk, record=rec)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    log(f"dp train nms_topk: {n_anchors} boxes, {rec['visited']} visited "
+        f"before the {cfg.rpn_post_nms_topk}th kept; "
+        + ", ".join(f"{1e3 * s:.2f}" for s in secs) + f" ms; {card}")
+    del anchors, obj, dl, prop
+
+    for k, p in params.items():
+        p.requires_grad_(tx.trains(k))
+    out = {}
+    for impl in ("cuda", "torch"):
+        for w in wrappers.values():
+            w.launches = 0
+        rec = []
+        total, losses = dt.detection_total_loss(
+            model, params, images, gts, tcfg=tcfg, uniforms=uniforms,
+            impl=impl, record=rec, proposals=None if impl == "cuda" else
+            [r["prop_idx"] for r in out["cuda"]["record"]])
+        leaves = [params[k] for k in DP_TRAIN_LEAVES]
+        grads = torch.autograd.grad(total, leaves)
+        counts = {k: w.launches for k, w in wrappers.items() if w.launches}
+        want = DP_TRAIN_CONV if impl == "cuda" else {}
+        log(f"dp train loss impl={impl}: total {float(total.detach()):.6g}, "
+            + ", ".join(f"{k} {float(v.detach()):.5g}"
+                        for k, v in losses.items())
+            + f"; launches {counts}; sampled: "
+            + "; ".join(f"anchors {int(r['rpn_w'].sum())}, proposals kept "
+                        f"{int((r['prop_idx'] >= 0).sum())}, rois "
+                        f"{int(r['roi_w'].sum())} ({int((r['fg'] & (r['roi_w'] > 0)).sum())}"
+                        f" fg), slab {int(r['dp_valid'].sum())}" for r in rec))
+        if counts != want:
+            fail(f"dp train impl={impl}: launches {counts}, expected {want}")
+        out[impl] = dict(losses={k: float(v) for k, v in losses.items()},
+                         grads=[gr.detach() for gr in grads], record=rec)
+        del total, losses, grads
+    for rc, rt in zip(out["cuda"]["record"], out["torch"]["record"]):
+        for key in ("rpn_w", "prop_idx", "roi_w", "fg", "dp_idx", "dp_valid"):
+            if not torch.equal(rc[key], rt[key]):
+                fail(f"dp train: sampled set {key} differs between the "
+                     f"cuda and torch runs")
+    log("dp train: sampled sets identical (anchors, proposals, rois, fg, "
+        "slab) between the cuda and torch runs")
+    for k, want in out["torch"]["losses"].items():
+        got = out["cuda"]["losses"][k]
+        rel = abs(got - want) / max(abs(want), 1e-12)
+        log(f"dp train {k} cuda {got:.6g} torch {want:.6g}: rel {rel:.3e} "
+            f"(tol {DP_TRAIN_TOLS['loss']:g})")
+        if not (math.isfinite(got) and rel <= DP_TRAIN_TOLS["loss"]):
+            fail(f"dp train {k}: cuda {got}, torch {want}")
+    for name, a, b in zip(DP_TRAIN_LEAVES, out["cuda"]["grads"],
+                          out["torch"]["grads"]):
+        rel, mrel = errors(a, b)[1], mean_rel(a, b)
+        log(f"dp train grad {name} cuda vs torch: max rel {rel:.3e} (tol "
+            f"{DP_TRAIN_TOLS['grads'][0]:g}), mean rel {mrel:.3e} (tol "
+            f"{DP_TRAIN_TOLS['grads'][1]:g})")
+        if not (rel <= DP_TRAIN_TOLS["grads"][0]
+                and mrel <= DP_TRAIN_TOLS["grads"][1]):
+            fail(f"dp train grad {name}: max rel {rel}, mean rel {mrel}")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the masked SGD steps
+    step = dt.make_detection_train_step(tcfg, tx, impl="cuda")
+    state = tx.init(params)
+    frozen = {k: p.detach().clone() for k, p in params.items()
+              if not tx.trains(k)}
+    watch = "dp_head.convs.7.kernel"
+    gen = torch.Generator(device=dev).manual_seed(SEED + 63)
+    counts = dict.fromkeys(wrappers, 0)
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for i in range(DP_TRAIN_STEPS):
+        before = params[watch].detach().clone()
+        for w in wrappers.values():
+            w.launches = 0
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        rec = []
+        start.record()
+        state, metrics = step(model, params, state, images, gts, gen,
+                              record=rec)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        step_counts = {k: w.launches for k, w in wrappers.items()
+                       if w.launches}
+        vals = {k: float(v) for k, v in metrics.items()}
+        moved = float((params[watch].detach() - before).abs().max())
+        log(f"dp train step {i + 1}: {ms[-1]:.1f} ms, "
+            + ", ".join(f"{k} {v:.5g}" for k, v in vals.items())
+            + f"; {watch} moved by {moved:.3e}; NMS visited "
+            f"{[r['nms_visited'] for r in rec]}; launches {step_counts}")
+        if not (all(math.isfinite(v) for v in vals.values()) and moved > 0):
+            fail(f"dp train step {i + 1}: losses {vals}, moved {moved}")
+        if step_counts != DP_TRAIN_CONV:
+            fail(f"dp train step {i + 1}: launches {step_counts}, expected "
+                 f"{DP_TRAIN_CONV}")
+        for k, n in step_counts.items():
+            counts[k] += n
+    moved = [k for k, p in frozen.items() if not torch.equal(params[k], p)]
+    log(f"dp train: {len(frozen)} frozen leaves (stem, res2, every BN) "
+        f"bitwise unchanged after {DP_TRAIN_STEPS} steps: {not moved}")
+    if moved:
+        fail(f"dp train: frozen leaves moved: {moved[:5]}")
+    warm = ms[1:]
+    log(f"dp train: {card}; ms a step {', '.join(f'{v:.1f}' for v in ms)} "
+        f"(warm mean {sum(warm) / len(warm):.1f} ms, "
+        f"{1e3 * DP_TRAIN_B * len(warm) / sum(warm):.3f} img/s at batch "
+        f"{DP_TRAIN_B}); peak memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, reserved "
+        f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB")
+    for k, w in wrappers.items():
+        w.launches = counts[k]
+    counts = gate_launches(wrappers, "densepose_train",
+                           {k: DP_TRAIN_STEPS * n
+                            for k, n in DP_TRAIN_CONV.items()})
+    del model, params, state, step, images, gts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def check_face_hand(wrappers, dev, card):
+    """Phase 12: ``Face`` at 384 and ``Hand`` at its four scales on seeded
+    crops, their nets from seeds with random biases: heatmaps
+    impl="cuda" against impl="torch" (FACE_HAND_TOLS), the peaks' agreement,
+    each cuda call launching exactly FACE_CONV / HAND_CONV. Returns the
+    cuda calls' launch counts."""
+    import numpy as np
+    import torch
+    from idmvton_tpu_torch.preprocess import openpose_extra as ox
+    rng = np.random.default_rng(SEED + 70)
+    face_img = rng.integers(0, 256, (200, 160, 3), np.uint8)
+    hand_img = rng.integers(0, 256, (180, 180, 3), np.uint8)
+    nets = {"face": ox.init_facenet(SEED + 71, device=dev),
+            "hand": ox.init_handpose(SEED + 72, device=dev)}
+    for i, net in enumerate(nets.values()):
+        random_affine_(net, SEED + 73 + i)
+    counts = dict.fromkeys(wrappers, 0)
+    for name, img, want_conv in (("face", face_img, FACE_CONV),
+                                 ("hand", hand_img, HAND_CONV)):
+        wrap = {impl: (ox.Face if name == "face" else ox.Hand)(
+            nets[name], impl=impl) for impl in ("cuda", "torch")}
+        hm, secs = {}, {}
+        for impl in ("cuda", "torch", "cuda"):
+            for w in wrappers.values():
+                w.launches = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            hm[impl] = wrap[impl].heatmaps(img)
+            secs[impl] = time.perf_counter() - t
+            got = {k: w.launches for k, w in wrappers.items() if w.launches}
+            if got != (want_conv if impl == "cuda" else {}):
+                fail(f"{name} impl={impl}: launches {got}, expected "
+                     f"{want_conv if impl == 'cuda' else {}}")
+            for k, n in got.items():
+                counts[k] += n
+        a, b = (torch.from_numpy(hm[i]) for i in ("cuda", "torch"))
+        rel, mrel = errors(a, b)[1], mean_rel(a, b)
+        tols = FACE_HAND_TOLS[name]
+        if name == "face":   # a channel's peak, or none below threshold
+            pc, pt = ([wrap["cuda"].peaks(hm[i][:, :, c:c + 1]).tolist()
+                       for c in range(hm[i].shape[-1])]
+                      for i in ("cuda", "torch"))
+            share = float(np.mean([x == y for x, y in zip(pc, pt)]))
+            n_peaks = f"{sum(map(bool, pc))} channels above threshold"
+        else:
+            pc, pt = (wrap[i].peaks(hm[i], img.shape[:2])
+                      for i in ("cuda", "torch"))
+            share = float((pc == pt).all(-1).mean())
+            n_peaks = f"{int((pc != 0).any(-1).sum())} parts found"
+        log(f"{name} heatmaps {hm['cuda'].shape} cuda vs torch: max rel "
+            f"{rel:.3e} (tol {tols[0]:g}), mean rel {mrel:.3e} (tol "
+            f"{tols[1]:g}); peaks at the same pixel {share:.4f} (bound "
+            f"{FACE_HAND_TOLS['peaks']:g}; {n_peaks}); warm cuda "
+            f"{secs['cuda']:.4f} s, torch {secs['torch']:.4f} s; {card}")
+        if not (rel <= tols[0] and mrel <= tols[1]
+                and share >= FACE_HAND_TOLS["peaks"]):
+            fail(f"{name}: heatmaps max rel {rel}, mean rel {mrel}, peaks "
+                 f"{share}")
+    for k, w in wrappers.items():
+        w.launches = counts[k]
+    return gate_launches(wrappers, "face_hand", {
+        k: 2 * FACE_CONV.get(k, 0) + 2 * HAND_CONV.get(k, 0)
+        for k in ("conv3x3", "conv3x3_hblock")})
+
+
+def check_evaluate(wrappers, dev):
+    """Phase 13: ``inference_on_dataset`` with the port's
+    ``DensePose.detect`` (its R-CNN from a seed, stem scaled as phase 6b)
+    over EVAL_IMAGES seeded 480x640 images with two gt boxes each, scored
+    by the host runtime's COCO evaluator (built here with g++ from the
+    checkout's source): 12 finite stats, DEMO_CONV's R-CNN sites an
+    image."""
+    import numpy as np
+    import torch
+    from idmvton_tpu_torch.models.layers import weights_changed_
+    from idmvton_tpu_torch.preprocess.densepose import evaluate
+    from idmvton_tpu_torch.preprocess.densepose.visualize import DensePose
+    from idmvton_tpu_torch.runtime import native
+    t0 = time.perf_counter()
+    lib = native.build()
+    native.get_native()
+    log(f"evaluate: host runtime {lib.name} built and bound in "
+        f"{time.perf_counter() - t0:.2f} s")
+    dp = DensePose(device=dev)
+    with torch.no_grad():
+        dp.model.backbone.stem.conv.kernel.div_(50.0)
+    weights_changed_(dp.model)
+    rng = np.random.default_rng(SEED + 80)
+    data = [(i, rng.integers(0, 256, (480, 640, 3), np.uint8),
+             np.asarray([[40, 60, 300, 460], [320, 20, 600, 470]],
+                        np.float32)) for i in range(EVAL_IMAGES)]
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    out = evaluate.inference_on_dataset(dp.detect, data)
+    secs = time.perf_counter() - t0
+    stats = out["stats"]
+    log(f"evaluate: {out['n_images']} images in {secs:.3f} s; stats "
+        + ", ".join(f"{v:.4f}" for v in stats))
+    if stats.shape != (12,) or not np.isfinite(stats).all():
+        fail(f"evaluate: stats {stats}")
+    return gate_launches(wrappers, "evaluate", {
+        k: EVAL_IMAGES * n for k, n in DEMO_CONV["densepose"].items()})
+
+
 def main():
     if not (ROOT / "idmvton_tpu_torch" / "ops" / "csrc").is_dir():
         fail("idmvton_tpu_torch/ not found beside chip_smoke.py: run it from "
@@ -1982,6 +2373,12 @@ def main():
     backward = check_kernel_grads(dev)
     counts["train"] = check_train(wrappers, dev, card)
     counts["train_cli"] = check_train_cli(wrappers)
+
+    # -- phases 11-13: DensePose training, Face / Hand, evaluation ---------
+    counts["densepose_train"] = check_dp_train(wrappers, dev, card)
+    with torch.inference_mode():
+        counts["face_hand"] = check_face_hand(wrappers, dev, card)
+        counts["evaluate"] = check_evaluate(wrappers, dev)
 
     kernels = []
     for name in wrappers:

@@ -3,8 +3,8 @@
 (half-pixel offset), a fixed sampling ratio, average pooling, a fixed
 number of ROIs with ``-1`` batch indices giving zeros.
 
-Every (roi, bin, sample point) reads its 4 neighbours with one advanced
-index into the feature map each (no per-ROI copy of the map), weighted and
+Every (roi, bin, sample point) reads its 4 neighbours with one row gather
+from the feature map each (no per-ROI copy of the map), weighted and
 summed in the JAX function's order.
 """
 
@@ -59,10 +59,16 @@ def roi_align(features, boxes, box_indices, *, output_size: int,
     wx0 = torch.where(valid_x, 1.0 - (cx - x0), zero)
 
     bi = box_indices.long().clamp(0, b - 1)[:, None, None]
+    flat = features.reshape(b * h * w, c)
 
     def take(yi, xi):
-        # (R, Py, Px, C)
-        return features[bi, yi[:, :, None], xi[:, None, :]]
+        # (R, Py, Px, C): one row gather; its backward is index_add_, which
+        # accumulates duplicates with atomics (the advanced index's
+        # backward sorts them and serializes each run of equal rows: ROIs
+        # on a border all read the same pixels)
+        rows = (bi * h + yi[:, :, None]) * w + xi[:, None, :]
+        return flat.index_select(0, rows.reshape(-1)).reshape(
+            *rows.shape, c)
 
     def wt(wy, wx):
         return wy[:, :, None, None] * wx[:, None, :, None]

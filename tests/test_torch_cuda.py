@@ -1332,3 +1332,161 @@ def test_concurrent_demo_requests_keep_exact_launch_counts(dev):
     want = {k: 4 * alone["request"][k] + loops[0] * alone["preprocess"][k]
             for k in got}
     assert got == want, (got, want, loops[0])
+
+
+# ---------------------------------------------------------------------------
+# DensePose detection training, Face / Hand, the evaluation harness
+# ---------------------------------------------------------------------------
+
+
+def _dp_batch(dev, b=2, h=256, w=352, g_=3, p=32, m=56, seed=60):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = lambda *shape: torch.rand(shape, generator=g, device=dev)
+    mean = torch.tensor([103.530, 116.280, 123.675], device=dev)
+    images = u(b, h, w, 3) * 255 - mean
+    bw, bh = (0.2 + 0.3 * u(b, g_)) * w, (0.3 + 0.4 * u(b, g_)) * h
+    x1, y1 = u(b, g_) * (w - bw), u(b, g_) * (h - bh)
+    gts = {"boxes": torch.stack([x1, y1, x1 + bw, y1 + bh], -1),
+           "valid": torch.ones(b, g_, dtype=torch.bool, device=dev),
+           "dp_x": x1[..., None] + u(b, g_, p) * bw[..., None],
+           "dp_y": y1[..., None] + u(b, g_, p) * bh[..., None],
+           "dp_i": torch.randint(0, 25, (b, g_, p), generator=g,
+                                 device=dev),
+           "dp_u": u(b, g_, p), "dp_v": u(b, g_, p),
+           "dp_pt_valid": torch.ones(b, g_, p, dtype=torch.bool, device=dev),
+           "dp_mask": u(b, g_, m, m) > 0.4}
+    return images, gts
+
+
+def _dp_model(dev, seed=60, **cfg):
+    from idmvton_tpu_torch.preprocess.densepose import rcnn
+    model = rcnn.init_densepose_rcnn(seed, rcnn.DensePoseConfig(**cfg),
+                                     device=dev)
+    with torch.no_grad():   # the stem at mean-subtracted pixel scale
+        model.backbone.stem.conv.kernel.div_(50.0)
+    return model
+
+
+def test_dp_train_step_cuda_matches_torch(dev):
+    """A DensePose train step at reduced depth (a 2x128 head, 256x352, B =
+    2): the losses ``impl="cuda"`` against ``impl="torch"`` within 5e-2
+    relative on the same uniforms and replayed proposals, the sampled sets
+    identical; the step launches exactly its forward's conv sites (no
+    kernel in the backward); two masked SGD steps stay finite and leave
+    stem, res2 and every frozen BN bitwise unchanged."""
+    from idmvton_tpu_torch.pipeline.graph import launch_counters
+    from idmvton_tpu_torch.preprocess.densepose import train as dt
+    model = _dp_model(dev, dp_convs=2, dp_dim=128)
+    images, gts = _dp_batch(dev)
+    tcfg = dt.DetectionTrainConfig()
+    params = dt.detection_params(model)
+    tx = dt.make_detection_optimizer(tcfg, params)
+    for k, p in params.items():
+        p.requires_grad_(tx.trains(k))
+    g = torch.Generator(device=dev).manual_seed(61)
+    n_anchors = (64 * 88 + 32 * 44 + 16 * 22 + 8 * 11 + 4 * 6) * 3
+    uniforms = [[torch.rand(n, generator=g, device=dev)
+                 for n in (n_anchors, 1003, 1003)] for _ in range(2)]
+    counters = launch_counters()
+    runs = {}
+    for impl in ("cuda", "torch"):
+        for f in counters.values():
+            f.launches = 0
+        rec = []
+        total, losses = dt.detection_total_loss(
+            model, params, images, gts, tcfg=tcfg, uniforms=uniforms,
+            impl=impl, record=rec, proposals=None if impl == "cuda"
+            else [r["prop_idx"] for r in runs["cuda"][1]])
+        torch.autograd.grad(total, [params["rpn.conv.kernel"]])
+        runs[impl] = ({k: float(v.detach()) for k, v in losses.items()}, rec,
+                      {k: f.launches for k, f in counters.items()
+                       if f.launches})
+    assert runs["torch"][2] == {} and runs["cuda"][2]["conv3x3"] > 0
+    for k, want in runs["torch"][0].items():
+        assert abs(runs["cuda"][0][k] - want) <= 5e-2 * abs(want), k
+    for rc, rt in zip(runs["cuda"][1], runs["torch"][1]):
+        for key in ("rpn_w", "prop_idx", "roi_w", "dp_idx", "dp_valid"):
+            assert torch.equal(rc[key], rt[key]), key
+    step = dt.make_detection_train_step(tcfg, tx, impl="cuda")
+    state = tx.init(params)
+    frozen = {k: p.detach().clone() for k, p in params.items()
+              if not tx.trains(k)}
+    for _ in range(2):
+        for f in counters.values():
+            f.launches = 0
+        state, metrics = step(model, params, state, images, gts, g)
+        assert all(torch.isfinite(v) for v in metrics.values()), metrics
+        assert {k: f.launches for k, f in counters.items()
+                if f.launches} == runs["cuda"][2]
+    assert all(torch.equal(params[k], p) for k, p in frozen.items())
+
+
+def test_nms_topk_over_every_anchor_on_the_card(dev):
+    """The trainer's NMS at its served size (217,413 boxes, topk 1000) on
+    the card equals the CPU walk, and stops early."""
+    from idmvton_tpu_torch.ops.nms import nms_topk
+    n = 217413
+    g = torch.Generator().manual_seed(24)
+    ctr = torch.rand(n, 2, generator=g) * 1088
+    size = torch.rand(n, 2, generator=g) * 400 + 16
+    boxes = torch.cat([ctr - size / 2, ctr + size / 2], 1)
+    scores = torch.randn(n, generator=g)
+    rec_c, rec_g = {}, {}
+    want = nms_topk(boxes, scores, iou_threshold=0.7, topk=1000,
+                    record=rec_c)
+    got = nms_topk(boxes.to(dev), scores.to(dev), iou_threshold=0.7,
+                   topk=1000, record=rec_g)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert rec_g["visited"] == rec_c["visited"] < n
+
+
+def test_face_and_hand_cuda_match_torch(dev):
+    """Face at 96 and Hand at two scales of 96 (random nets with random
+    biases): heatmaps ``cuda`` against ``torch`` within the bf16 bound
+    (5e-2 of the largest magnitude), the cuda calls on the conv kernel."""
+    import numpy as np
+    from idmvton_tpu_torch.pipeline.graph import launch_counters
+    from idmvton_tpu_torch.preprocess import openpose_extra as ox
+    counters = launch_counters()
+    rng = np.random.default_rng(70)
+    img = rng.integers(0, 256, (120, 100, 3), np.uint8)
+    for make, kw in ((lambda n, i: ox.Face(n, input_size=96, impl=i),
+                      ox.init_facenet),
+                     (lambda n, i: ox.Hand(n, boxsize=96, scales=(0.5, 1.0),
+                                           map_size=32, impl=i),
+                      ox.init_handpose)):
+        net = kw(71, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(72)
+        with torch.no_grad():
+            for m in net.modules():
+                if getattr(m, "bias", None) is not None:
+                    m.bias.copy_(torch.randn(m.bias.shape, generator=gen,
+                                             device=dev) * 0.1)
+        out = {}
+        for impl in ("cuda", "torch"):
+            for f in counters.values():
+                f.launches = 0
+            out[impl] = make(net, impl).heatmaps(img)
+            counts = {k: f.launches for k, f in counters.items()
+                      if f.launches}
+            assert (counts.get("conv3x3", 0) > 0) == (impl == "cuda"), counts
+        scale = float(np.abs(out["torch"]).max())
+        assert float(np.abs(out["cuda"] - out["torch"]).max()) \
+            <= 5e-2 * scale
+
+
+def test_inference_on_dataset_on_the_card(dev):
+    """``inference_on_dataset`` with ``DensePose.detect`` on the card over
+    two images: the host runtime scores them, 12 finite stats."""
+    import numpy as np
+    from idmvton_tpu_torch.preprocess.densepose import evaluate
+    from idmvton_tpu_torch.preprocess.densepose.visualize import DensePose
+    dp = DensePose(_dp_model(dev, dp_convs=1, dp_dim=128), short_edge=256,
+                   max_size=400)
+    rng = np.random.default_rng(80)
+    data = [(i, rng.integers(0, 256, (240, 320, 3), np.uint8),
+             np.asarray([[20, 30, 150, 230]], np.float32)) for i in range(2)]
+    out = evaluate.inference_on_dataset(dp.detect, data)
+    assert out["n_images"] == 2 and out["stats"].shape == (12,)
+    assert np.isfinite(out["stats"]).all()
