@@ -10,7 +10,8 @@ failure:
    set the TF32 flags off (fp32 products in full fp32 on both sides);
 2. build the kernels from ``idmvton_tpu_torch/ops/csrc`` with nvcc;
 3. hold each of the eleven kernel entry points against its plain PyTorch
-   version at the shapes its path gives it (bf16; the conv kernels also on
+   version at the shapes its path gives it (phase 14's TP and SP ranks'
+   too; bf16; the conv kernels also on
    the fp32 decode's and the demo's preprocessing nets' fp32
    activations), and time the kernel, the plain
    version and, where one PyTorch call computes the same function, that
@@ -122,7 +123,22 @@ failure:
 13. ``inference_on_dataset`` with ``DensePose.detect`` over three images,
    scored by the host runtime (``runtime/native.py``, built with g++ from
    the checkout): 12 finite stats;
-14. print a JSON line with each kernel's result, then the device line.
+14. the parallel paths and the utilities (``parallel/``, ``utils/``):
+   (a) phase 10's full-width adamw step through the data-parallel path on
+   a one-rank NCCL group made in this process, equal to the step without
+   a group bit for bit (loss, gradient norm, five leaves, launches); (b)
+   two ranks sharing the card (``parallel/onecard.py``; NCCL probed first,
+   gloo with CUDA tensors where it refuses two ranks on one device): one
+   full-width denoise step under TP=2 and under SP=2 against the
+   single-process step (``PARALLEL_TOLS``) with each rank's launches
+   exact (``PARALLEL_STEP``), the micro stack's dp=2 step replicated and
+   with ZeRO-1 against one rank (``MICRO_TOL``, ZeRO-1's moments at most
+   half a rank), ViT-H in 2 pipeline stages x 2 microbatches equal to the
+   sequential forward bit for bit; (c) LPIPS, SSIM and PSNR on phase 5's
+   two images (LPIPS cuda against torch, ``LPIPS_CONV`` exact), a
+   ``PhaseTimer`` and a ``trace`` around the cuda LPIPS call. One card
+   shows the parallel paths' correctness, not their scaling;
+15. print a JSON line with each kernel's result, then the device line.
 """
 
 from __future__ import annotations
@@ -191,10 +207,6 @@ TINY_CONV_PER_BATCH = {"conv3x3": 860, "conv3x3_hblock": 1}
 # layer of the decoder, so the bound is loose; it catches a kernel that
 # drops or garbles the fp32 path, not a few ulps
 DECODE_FP32_MEAN_REL = 5e-2
-# Random biases ~ N(0, AFFINE_STD^2) and norm scales ~ 1 + N(0,
-# AFFINE_STD^2), shifts ~ N(0, AFFINE_STD^2) (tests/test_torch_affine.py's
-# values), drawn on the card from the seed
-AFFINE_STD = 0.1
 # the kernels each serving path must launch, and no others
 BF16_PATH = ("ln_linear", "fused_layer_norm", "gn_spatial_stats", "conv3x3",
              "conv3x3_hblock", "flash_attention_gemm")
@@ -226,6 +238,10 @@ PATH_KERNELS = {
     "densepose_train": ("conv3x3", "conv3x3_hblock"),
     "face_hand": ("conv3x3", "conv3x3_hblock"),
     "evaluate": ("conv3x3", "conv3x3_hblock"),
+    # phase 14: the full-width adamw step through the data-parallel path on
+    # a one-rank NCCL group (phase 10's kernels); LPIPS's VGG16 on fp32 x
+    "dp_nccl": BF16_PATH,
+    "lpips": ("conv3x3", "conv3x3_hblock"),
 }
 # the replayed step's timing (phase 4): steps a reading
 TIMED_STEPS = 5
@@ -309,28 +325,16 @@ def graph_ms(fn, iters: int = 10, reps: int = 3) -> float:
 
 def random_affine_(module, seed: int):
     """Overwrites every bias (of the layers that have one) with N(0,
-    AFFINE_STD^2) and every norm's scale with 1 + N(0, AFFINE_STD^2), from
+    0.1^2) and every norm's scale with 1 + N(0, 0.1^2), from
     ``seed``, in place (tests/test_torch_affine.py's ``random_affine`` on
     the modules: this script imports nothing of tests/). Each draw is
     rounded through bf16: the fp32 norm parameters then hold what a bf16
     load of any checkpoint gives them (the loader rounds norms through the
-    load type), so the bf16 tree of phase 7 holds the stack exactly."""
-    import torch
-    from idmvton_tpu_torch.models.layers import Norm
-    p0 = next(module.parameters())
-    gen = torch.Generator(device=p0.device).manual_seed(seed)
-    with torch.no_grad():
-        for m in module.modules():
-            for name, p in m.named_parameters(recurse=False):
-                if name not in ("bias", "scale") or p is None:
-                    continue
-                if name == "scale" and not isinstance(m, Norm):
-                    continue
-                r = torch.randn(p.shape, generator=gen, device=p.device)
-                r.mul_(AFFINE_STD)
-                if name == "scale":
-                    r.add_(1.0)
-                p.copy_(r.bfloat16())
+    load type), so the bf16 tree of phase 7 holds the stack exactly. The
+    port's ``parallel.onecard.random_affine_``, which the two-rank phase's
+    ranks run."""
+    from idmvton_tpu_torch.parallel import onecard
+    onecard.random_affine_(module, seed)
 
 
 def errors(got, want):
@@ -573,6 +577,40 @@ def kernel_cases(dev):
                     library=lambda: F.scaled_dot_product_attention(qt, kt, vt),
                     vjp=vjp)
 
+    def flash_sp_case(b, nq, n, heads, uncond=None, d=64):
+        """An SP rank's SelfAttention (``parallel/sp.py``): its ``nq``
+        local queries, a view of its to_qkv output, over the ``n`` own
+        keys and values gathered from every rank (contiguous (B, n, H, D))
+        and, for TryonNet (``uncond`` given), the gathered garment K/V as
+        the model passes it: a view of the (B, n, 2*H*D) garment GEMM
+        output whose leading ``uncond`` rows are zeros."""
+        hd = heads * d
+        q = rn(b, nq, 3 * hd)[..., :hd].reshape(b, nq, heads, d)
+        k, v = rn(b, n, heads, d), rn(b, n, heads, d)
+        keys, label = n, ""
+        if uncond is not None:
+            kvg = torch.cat([torch.zeros(uncond, n, 2 * hd, device=dev,
+                                         dtype=torch.bfloat16),
+                             rn(b - uncond, n, 2 * hd)])
+            kg = kvg[..., :hd].reshape(b, n, heads, d)
+            vg = kvg[..., hd:].reshape(b, n, heads, d)
+            kern = lambda: A.flash_attention_concat_kv(q, k, v, kg, vg)
+            plain = lambda: A.flash_attention_concat_kv_torch(q, k, v, kg,
+                                                              vg)
+            ins, keys = [q, k, v, kg, vg], 2 * n
+            label = f" (concat KV, uncond_rows={uncond})"
+            kt, vt = bhsd(torch.cat([k, kg], 1)), bhsd(torch.cat([v, vg], 1))
+        else:
+            kern = lambda: A.flash_attention(q, k, v)
+            plain = lambda: A.flash_attention_torch(q, k, v)
+            ins, kt, vt = [q, k, v], bhsd(k), bhsd(v)
+        qt = bhsd(q)
+        return case(f"SP q{(b, nq, heads, d)} over {keys} gathered keys"
+                    f"{label}", kern, plain, ins,
+                    4 * b * heads * nq * keys * d,
+                    exps=b * heads * nq * keys,
+                    library=lambda: F.scaled_dot_product_attention(qt, kt, vt))
+
     def fused_case(b, st, heads, d, s_own):
         qkv = rn(b, st, 3, heads, d)
         qt, kt, vt = (bhsd(qkv[:, :s_own if i == 0 else st, i])
@@ -604,15 +642,37 @@ def kernel_cases(dev):
              ln_case((2, 768), 1280, 5120, True, True),
              ln_case((4, 768), 128, 384, False, False),
              ln_case((4, 768), 128, 128, False, False),
-             ln_case((4, 768), 128, 512, True, True)]),
+             ln_case((4, 768), 128, 512, True, True),
+             # phase 14: a TP=2 rank's TryonNet at the 1280-wide level
+             # (to_qkv, to_q, GEGLU) and 640-wide GEGLU; an SP=2 rank's
+             # rows: TryonNet's to_qkv, to_q and GEGLU, GarmentNet's to_q
+             # and GEGLU, at the 640- and 1280-wide levels
+             ln_case((4, 768), 1280, 1920, False, False),
+             ln_case((4, 768), 1280, 640, False, False),
+             ln_case((4, 768), 1280, 2560, True, True),
+             ln_case((4, 3072), 640, 1280, True, True),
+             ln_case((4, 1536), 640, 1920, False, False),
+             ln_case((4, 1536), 640, 640, False, False),
+             ln_case((4, 1536), 640, 2560, True, True),
+             ln_case((4, 384), 1280, 3840, False, False),
+             ln_case((4, 384), 1280, 1280, False, False),
+             ln_case((4, 384), 1280, 5120, True, True),
+             ln_case((2, 1536), 640, 640, False, False),
+             ln_case((2, 1536), 640, 2560, True, True),
+             ln_case((2, 384), 1280, 1280, False, False),
+             ln_case((2, 384), 1280, 5120, True, True)]),
         ("fused_layer_norm", csrc + "ln_linear.cu",
          "idmvton_tpu/ops/pallas_norm.py:26", "F.layer_norm", [
-             lnorm_case((2, 3072, 640)), lnorm_case((2, 768, 1280))]),
+             lnorm_case((2, 3072, 640)), lnorm_case((2, 768, 1280)),
+             # phase 14: an SP=2 rank's GarmentNet rows
+             lnorm_case((2, 1536, 640)), lnorm_case((2, 384, 1280))]),
         ("gn_spatial_stats", csrc + "gn_stats.cu",
          "idmvton_tpu/ops/pallas_norm.py:575",
          "none: no PyTorch call returns GroupNorm's per-channel sums", [
              gn_case((4, 128, 96, 320)), gn_case((4, 32, 24, 2560)),
-             gn_case((6, 1024, 768, 128))]),
+             gn_case((6, 1024, 768, 128)),
+             # phase 14: an SP=2 rank's 64 of 128 rows
+             gn_case((4, 64, 96, 320))]),
         ("conv3x3", csrc + "conv3x3.cu",
          "idmvton_tpu/ops/pallas_conv.py:34", "F.conv2d (cuDNN)", [
              conv_case(CV.conv3x3, 4, 128, 96, 320, 320),
@@ -633,7 +693,14 @@ def kernel_cases(dev):
              conv_case(CV.conv3x3, 2, 100, 136, 128, 128, torch.float32),
              conv_case(CV.conv3x3, 2, 100, 136, 256, 256, torch.float32),
              conv_case(CV.conv3x3, 16, 28, 28, 512, 512, torch.float32),
-             conv_case(CV.conv3x3, 1, 96, 96, 256, 256, torch.float32)]),
+             conv_case(CV.conv3x3, 1, 96, 96, 256, 256, torch.float32),
+             # phase 14: an SP=2 rank's rows with their two halo rows (the
+             # 320- and 1280-wide levels); LPIPS's VGG16 on a 768x1024
+             # image (fp32): conv3_1, conv4_2
+             conv_case(CV.conv3x3, 4, 66, 96, 320, 320),
+             conv_case(CV.conv3x3, 4, 18, 24, 1280, 1280),
+             conv_case(CV.conv3x3, 1, 256, 192, 128, 256, torch.float32),
+             conv_case(CV.conv3x3, 1, 128, 96, 512, 512, torch.float32)]),
         ("conv3x3_hblock", csrc + "conv3x3.cu",
          "idmvton_tpu/ops/pallas_conv.py:187", "F.conv2d (cuDNN)", [
              conv_case(CV.conv3x3_hblock, 6, 1024, 768, 128, 128),
@@ -650,6 +717,11 @@ def kernel_cases(dev):
              conv_case(CV.conv3x3_hblock, 2, 200, 272, 256, 256,
                        torch.float32),
              conv_case(CV.conv3x3_hblock, 1, 368, 368, 128, 128,
+                       torch.float32),
+             # phase 14: LPIPS's conv2_2 and conv3_2 (fp32, 768x1024)
+             conv_case(CV.conv3x3_hblock, 1, 512, 384, 128, 128,
+                       torch.float32),
+             conv_case(CV.conv3x3_hblock, 1, 256, 192, 256, 256,
                        torch.float32)]),
         ("flash_attention_gemm", csrc + "flash_attention_gemm.cu",
          "idmvton_tpu/ops/pallas_attention.py:356", sdpa, [
@@ -658,7 +730,9 @@ def kernel_cases(dev):
              flash_gemm_case(2, 3072, 10, False, 0),
              flash_gemm_case(2, 768, 20, False, 0),
              # the tiny UNet's 128-wide level (8 heads of 16), TryonNet
-             flash_gemm_case(4, 768, 8, True, 2, d=16)]),
+             flash_gemm_case(4, 768, 8, True, 2, d=16),
+             # phase 14: a TP=2 rank's TryonNet at the 1280-wide level
+             flash_gemm_case(4, 768, 10, True, 2)]),
         ("ln_linear_i8", csrc + "ln_linear_i8.cu",
          "idmvton_tpu/ops/pallas_norm.py:380",
          "none: no PyTorch call fuses LayerNorm, int8 quantization and an "
@@ -686,7 +760,15 @@ def kernel_cases(dev):
          "idmvton_tpu/ops/pallas_attention.py:58", sdpa, [
              flash_case(4, 3072, 4, 16, 3072),   # tiny TryonNet, 64-wide
              flash_case(2, 3072, 4, 16, 0),      # tiny GarmentNet, 64-wide
-             flash_case(4, 3072, 10, 64, 3072)]),  # SDXL width
+             flash_case(4, 3072, 10, 64, 3072),  # SDXL width
+             # phase 14: a TP=2 rank's 640-wide level (5 heads of 64); an
+             # SP=2 rank's TryonNet and GarmentNet at the 640- and
+             # 1280-wide levels
+             flash_case(4, 3072, 5, 64, 3072),
+             flash_sp_case(4, 1536, 3072, 10, uncond=2),
+             flash_sp_case(4, 384, 768, 20, uncond=2),
+             flash_sp_case(2, 1536, 3072, 10),
+             flash_sp_case(2, 384, 768, 20)]),
         ("flash_attention_fused_qkv", csrc + "flash_attention.cu",
          "idmvton_tpu/ops/pallas_attention.py:743", sdpa, [
              fused_case(4, 6144, 4, 16, 3072),
@@ -938,12 +1020,13 @@ def check_decode_fp32(models, wrappers, gen):
     return counts
 
 
-def serve_requests(pipe, inputs, gen, wrappers, path, exact=None):
+def serve_requests(pipe, inputs, gen, wrappers, path, exact=None, keep=None):
     """Serve 2 requests through ``stepwise_generate``; returns the launch
     count of each kernel in that run (counts zeroed just before, read just
     after). Fails unless the run launched every kernel of
     ``PATH_KERNELS[path]``, no other and, for each kernel in ``exact``,
-    exactly that many times."""
+    exactly that many times. ``keep`` (a list): the last request's images
+    are appended to it."""
     import torch
     serve = pipe.stepwise_generate(num_steps=STEPS, guidance_scale=GUIDANCE,
                                    garment_cache="every_step")
@@ -967,6 +1050,8 @@ def serve_requests(pipe, inputs, gen, wrappers, path, exact=None):
             f"std {float(images.float().std()):.4f}")
     log(f"{path} peak memory during serving: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if keep is not None:
+        keep.append(images.float())
     return gate_launches(wrappers, path, exact)
 
 
@@ -2231,6 +2316,317 @@ def check_evaluate(wrappers, dev):
         k: EVAL_IMAGES * n for k, n in DEMO_CONV["densepose"].items()})
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the parallel paths and the utilities
+# ---------------------------------------------------------------------------
+
+# One full-width denoise step (GarmentNet at batch 2, TryonNet over the CFG
+# batch of 4, 128x96 latents), per rank, read from the code. Single
+# process: ln_linear at TryonNet's to_qkv, to_q and ff proj_in of its 70
+# blocks and GarmentNet's to_q and ff (its emit LayerNorm is
+# fused_layer_norm): 210 + 140; 70 fused_layer_norm; GroupNorm 46 TryonNet
+# (4 + 4 + 2 + 4 + 2 resnets' and Transformer2Ds' down, 4 + 1 mid, 6 + 3 +
+# 6 + 3 + 6 up, conv_norm_out) + 39 GarmentNet (no plain up block, no
+# conv_norm_out); 3x3 convs with Cin, Cout >= 128: 36 + 30 (conv_in and
+# conv_out stay plain); flash_attention_gemm at every self-attention site,
+# 70 + 70. TP=2 (``parallel/tp.py``): the 640-wide level keeps 5 heads a
+# rank (H*D = 320, not a multiple of 128), so its 10 + 10 self-attention
+# sites take flash_attention (over 3072 own [+ 3072 garment] keys) and its
+# to_qkv (N = 960) and to_q (N = 320) leave ln_linear (N % 128 != 0): 320
+# ln_linear (TryonNet 60 x 3 + 10, GarmentNet 60 x 2 + 10), 120
+# flash_attention_gemm, 20 flash_attention; GroupNorm and convs are
+# replicated. SP=2 (``parallel/sp.py``): every conv runs on its 64 + 2 (32
+# + 2, 16 + 2) rows, GroupNorm on local rows (>= 64 positions everywhere),
+# and self-attention gathers K / V and runs flash_attention at all 140
+# sites.
+PARALLEL_STEP = {
+    "single": {"ln_linear": 350, "fused_layer_norm": 70,
+               "gn_spatial_stats": 85, "conv3x3": 66,
+               "flash_attention_gemm": 140},
+    "tp": {"ln_linear": 320, "fused_layer_norm": 70, "gn_spatial_stats": 85,
+           "conv3x3": 66, "flash_attention_gemm": 120, "flash_attention": 20},
+    "sp": {"ln_linear": 350, "fused_layer_norm": 70, "gn_spatial_stats": 85,
+           "conv3x3": 66, "flash_attention": 140},
+}
+# (max rel, mean rel) of the gathered TP=2 / SP=2 guided noise prediction
+# against the single-process impl="cuda" step on the same inputs. Both
+# sides round in bf16 at ~140 sites, in other places (TP: partial products
+# summed over the ranks, #9 for #4 and a plain LayerNorm + GEMM for #1 at
+# the 640-wide level; SP: #9 for #4 everywhere, GroupNorm sums in another
+# order), so the difference is about sqrt(2) x phase 4's cuda-vs-torch
+# one. First reading (an H100 80GB HBM3 at 700 W, gloo between the two
+# ranks, random biases and affines): TP max rel 2.94e-2, mean rel
+# 2.68e-2; SP 2.84e-2 / 2.71e-2, the same on both ranks. In fp32 on the
+# CPU (tests/test_torch_parallel.py) the same steps agree to 2.3e-6. The
+# bounds sit at 2x the max and 1.3x the mean: a dropped bias or LayerNorm
+# shift (6.95e-2 / 8.64e-2 mean rel in the tiny probe, STEP_TOLS's note)
+# or a lost garment K/V (0.42) falls outside.
+PARALLEL_TOLS = {"tp": (6e-2, 3.5e-2), "sp": (6e-2, 3.5e-2)}
+# the micro stack's dp=2 step (replicated, ZeRO-1) against one rank: the
+# loss relative, every master within MICRO_TOL, except where the one-rank
+# gradient is under 1e-3 of its leaf's largest: Adam's first step is lr *
+# g / |g|, so such an entry may flip its step's sign (2 lr apart)
+MICRO_TOL = 1e-5
+# LPIPS (VGG16, fp32 x) on two 768x1024 images, read from the code: per
+# image, the 3x3 sites with Cin and Cout >= 128 are conv2_2, conv3_1-3_3,
+# conv4_1-4_3, conv5_1-5_3; those whose fp32 input image reaches 32 MiB
+# take conv3x3_hblock: conv2_2 (512x384x128, 96 MiB), conv3_2 and conv3_3
+# (256x192x256, 48 MiB); conv3_1 (256x192x128) is 24 MiB
+LPIPS_CONV = {"conv3x3": 2 * 7, "conv3x3_hblock": 2 * 3}
+# LPIPS impl="cuda" (bf16 operands at the kernel sites) against
+# impl="torch" (fp32, TF32 off): relative difference of the distance.
+# First readings (an H100 80GB HBM3 at 700 W, random VGG16 from the seed):
+# 9.3e-4 on two random images, 7.4e-4 on phase 5's; the bound at ~3x
+LPIPS_TOL = 3e-3
+# SSIM / PSNR on the card against the same on the host
+METRIC_TOL = 1e-5
+
+
+def check_dp_nccl(wrappers, dev, card):
+    """Phase 14a: phase 10's full-width adamw step (sdxl_tryon TryonNet +
+    Resampler, batch 1 at HEIGHT x WIDTH, remat, the VAE sample, noise and
+    timestep drawn from a seeded generator) without a process group, then
+    through the data-parallel path (``make_train_step(mesh=...)``) on a
+    one-rank NCCL group made in this process: loss, gradient norm,
+    TRAIN_LEAVES and launch counts equal bit for bit. Returns the DP step's
+    launches."""
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from idmvton_tpu_torch.core.config import SchedulerConfig
+    from idmvton_tpu_torch.diffusion.scheduler import DDPMScheduler
+    from idmvton_tpu_torch.parallel.mesh import make_mesh
+    from idmvton_tpu_torch.pipeline.tryon import TryonModels
+    from idmvton_tpu_torch.train.train_step import (
+        flat_params, init_train_state, make_optimizer, make_train_step,
+    )
+    models = TryonModels.init(SEED, device=dev, dtype=torch.bfloat16)
+    for i, module in enumerate(models.components().values()):
+        random_affine_(module, SEED + 10 + i)
+    sched = DDPMScheduler(SchedulerConfig.train())
+    tx = make_optimizer()
+    batch = train_batch(models, dev,
+                        torch.Generator(device=dev).manual_seed(SEED + 40))
+    del batch["noise"], batch["timesteps"]
+
+    def run(mesh, label):
+        state = init_train_state(models, tx)
+        step = make_train_step(models, sched, tx, impl="cuda", mesh=mesh)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = dict(loss=metrics["loss"].clone(),
+                   grad_norm=metrics["grad_norm"].clone(),
+                   counts={k: w.launches for k, w in wrappers.items()},
+                   leaves={k: flat_params(state.trainable)[k].detach().clone()
+                           for k in TRAIN_LEAVES})
+        log(f"dp {label}: {secs:.3f} s, loss {float(got['loss']):.6g}, grad "
+            f"norm {float(got['grad_norm']):.6g}; launches {got['counts']}")
+        del state, step, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+        return got
+
+    torch.cuda.reset_peak_memory_stats()
+    plain = run(None, "no process group")
+    root = tempfile.mkdtemp(prefix="idmvton_nccl_")
+    dist.init_process_group("nccl", init_method=f"file://{root}/store",
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        dp = run(make_mesh(), "one-rank NCCL group")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    same = [torch.equal(plain[k], dp[k]) for k in ("loss", "grad_norm")]
+    same += [torch.equal(plain["leaves"][k], dp["leaves"][k])
+             for k in TRAIN_LEAVES]
+    if not all(same) or plain["counts"] != dp["counts"]:
+        fail(f"dp over a one-rank NCCL group differs from the step without "
+             f"one: equal {same}, launches {plain['counts']} vs "
+             f"{dp['counts']}")
+    log(f"dp: the one-rank NCCL step equals the plain step bit for bit "
+        f"(loss, gradient norm, {len(TRAIN_LEAVES)} leaves, launches); peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated; "
+        f"{card}")
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, w in wrappers.items():
+        w.launches = dp["counts"][k]
+    return gate_launches(wrappers, "dp_nccl")
+
+
+def _micro_close(label, got, want):
+    """Gates a dp=2 micro step against the one-rank one (MICRO_TOL)."""
+    import numpy as np
+    if not abs(got["loss"] - want["loss"]) <= MICRO_TOL * abs(want["loss"]):
+        fail(f"{label}: loss {got['loss']} vs one rank {want['loss']}")
+    worst, flips, total = 0.0, 0, 0
+    for k, w in want["params"].items():
+        err = np.abs(got["params"][k] - w)
+        mu = np.abs(want["mu"][k])
+        tiny = mu < 1e-3 * mu.max()
+        worst = max(worst, float(err[~tiny].max(initial=0.0)))
+        if not (err[~tiny] <= MICRO_TOL).all() or \
+                not (err[tiny] <= 3 * MICRO_TOL).all():
+            fail(f"{label}: {k} differs by {float(err.max())} from one rank")
+        flips += int((err[tiny] > MICRO_TOL).sum())
+        total += err.size
+    if flips > 1e-3 * total:
+        fail(f"{label}: {flips} of {total} entries flipped their step")
+    log(f"{label}: loss {got['loss']:.8g} (one rank {want['loss']:.8g}), "
+        f"masters within {worst:.2e} ({flips} near-zero-gradient entries "
+        f"of {total} flipped Adam's first step), moments "
+        f"{got['moment_bytes']} bytes a rank")
+
+
+def check_two_ranks(dev, card):
+    """Phase 14b: two ranks on the one card (``parallel/onecard.py``
+    through ``parallel.dryrun.spawn``). NCCL is probed first; where it
+    refuses two ranks on one device the ranks take gloo with CUDA tensors.
+    Gates the full-width TP=2 and SP=2 denoise steps against the
+    single-process one (PARALLEL_TOLS) and each rank's launches
+    (PARALLEL_STEP), the micro dp=2 step, replicated and ZeRO-1, against
+    the one-rank step here (MICRO_TOL; ZeRO-1's moments at most half a
+    rank), and ViT-H's GPipe run bit for bit. Returns each parallel
+    step's launches summed over the ranks."""
+    import torch
+    from torch.multiprocessing import (
+        ProcessExitedException, ProcessRaisedException,
+    )
+    from idmvton_tpu_torch.parallel import onecard
+    from idmvton_tpu_torch.parallel.dryrun import spawn
+    t0 = time.perf_counter()
+    try:
+        spawn(onecard.nccl_probe, 2, backend="nccl", timeout=180)
+        backend = "nccl"
+        log("two ranks, one card: NCCL accepted them")
+    except (ProcessRaisedException, ProcessExitedException,
+            TimeoutError) as e:
+        said = [ln for ln in str(e).splitlines() if ln.strip()] or [repr(e)]
+        why = next((ln for ln in said if "Duplicate GPU" in ln), said[-1])
+        backend = "gloo"
+        log(f"two ranks, one card: NCCL refused them ({why.strip()}); the "
+            f"two-rank runs take gloo with CUDA tensors")
+    log(f"two ranks: the NCCL probe took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ranks = spawn(onecard.all_ranks, 2, SEED + 50, backend=backend,
+                  timeout=900)
+    log(f"two ranks ({backend}): spawned, ran and joined in "
+        f"{time.perf_counter() - t0:.1f} s")
+    counts = {}
+    for mode in ("tp", "sp"):
+        counts[mode] = dict.fromkeys(onecard.KERNELS, 0)
+    for rank, r in enumerate(ranks):
+        d = r["denoise"]
+        log(f"rank {rank} ({d['backend']}): single-process step "
+            f"{d['single_s']:.3f} s, SP=2 {d['sp_s']:.3f} s, TP=2 "
+            f"{d['tp_s']:.3f} s (both ranks share the card: no speed-up is "
+            f"measurable); peak {d['peak_gib']:.2f} GiB; {card}")
+        for mode in ("single", "tp", "sp"):
+            want = dict.fromkeys(onecard.KERNELS, 0)
+            want.update(PARALLEL_STEP[mode])
+            log(f"rank {rank} {mode} step launches {d[mode]}")
+            if d[mode] != want:
+                fail(f"rank {rank} {mode} step: launches {d[mode]}, "
+                     f"expected {want}")
+            if mode != "single":
+                for k, n in d[mode].items():
+                    counts[mode][k] += n
+        for mode in ("tp", "sp"):
+            (mx, mean), (mx_tol, mean_tol) = d[f"{mode}_err"], \
+                PARALLEL_TOLS[mode]
+            log(f"rank {rank} {mode.upper()}=2 guided noise prediction vs "
+                f"single process: max rel {mx:.3e} (tol {mx_tol:g}), mean "
+                f"rel {mean:.3e} (tol {mean_tol:g})")
+            if not (mx <= mx_tol and mean <= mean_tol):
+                fail(f"rank {rank} {mode}: max rel {mx}, mean rel {mean}")
+    from idmvton_tpu_torch.parallel.onecard import _host, micro_step
+    one = _host(*micro_step(dev, SEED + 50))
+    for rank, r in enumerate(ranks):
+        t = r["train"]
+        for mode in ("replicated", "zero1"):
+            _micro_close(f"rank {rank} micro dp=2 {mode}", t[mode], one)
+        if not t["zero1"]["moment_bytes"] <= 0.5 * one["moment_bytes"]:
+            fail(f"rank {rank}: ZeRO-1 holds {t['zero1']['moment_bytes']} "
+                 f"moment bytes, one rank {one['moment_bytes']}")
+        p = r["pipeline"]
+        log(f"rank {rank} GPipe ViT-H ({p['layers']} layers x "
+            f"{p['hidden']}, 2 stages x 2 microbatches, activations hopping "
+            f"through pinned host memory under gloo): pipeline "
+            f"{p['pipeline_s']:.3f} s, sequential {p['sequential_s']:.3f} "
+            f"s, equal bit for bit: {p['equal']}")
+        if not p["equal"]:
+            fail(f"rank {rank}: the GPipe ViT-H differs from the "
+                 f"sequential forward over the same microbatches")
+    return counts
+
+
+def check_utilities(wrappers, dev, card, images):
+    """Phase 14c: LPIPS (random VGG16 from the seed, fp32) between phase
+    5's two 768x1024 images, impl="cuda" against impl="torch", gated on
+    LPIPS_TOL and its exact conv launches (LPIPS_CONV); SSIM and PSNR on
+    the card against the host; ``PhaseTimer`` and ``trace`` around the cuda
+    LPIPS call, whose trace must name the conv kernels. Returns the cuda
+    call's launches."""
+    import shutil
+    import tempfile
+    import torch
+    from idmvton_tpu_torch.utils import metrics, profiling
+    a, b = images[0:1].to(dev), images[1:2].to(dev)
+    net = metrics.init_lpips(SEED + 70, device=dev)
+    timer = profiling.PhaseTimer()
+    logdir = tempfile.mkdtemp(prefix="idmvton_trace_")
+    try:
+        for w in wrappers.values():
+            w.launches = 0
+        with profiling.trace(logdir) as prof:
+            with timer.phase("lpips_cuda", sync=a):
+                with profiling.annotate("lpips_cuda"):
+                    d_cuda = metrics.lpips(net, a, b, impl="cuda")
+        lp_counts = gate_launches(wrappers, "lpips", LPIPS_CONV)
+        names = {e.key for e in prof.key_averages()}
+        path = os.path.join(logdir, os.listdir(logdir)[0])
+        with open(path) as f:
+            kernels = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                       if e.get("cat") == "kernel"]
+        trace_mb = os.path.getsize(path) / 2**20
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    hit = sorted({k.split("(")[0] for k in kernels if "conv3x3" in k})
+    if not hit or "lpips_cuda" not in names:
+        fail(f"trace: no conv3x3 kernel or no lpips_cuda range among "
+             f"{len(kernels)} kernel events")
+    with timer.phase("lpips_torch", sync=a):
+        d_torch = metrics.lpips(net, a, b, impl="torch")
+    rel = float((d_cuda - d_torch).abs().max() / d_torch.abs().max())
+    log(f"LPIPS of phase 5's two images: cuda {float(d_cuda[0]):.6g}, torch "
+        f"{float(d_torch[0]):.6g}, rel {rel:.3e} (tol {LPIPS_TOL:g}); "
+        f"launches {lp_counts}")
+    if not rel <= LPIPS_TOL:
+        fail(f"LPIPS cuda vs torch: rel {rel}")
+    s_dev, p_dev = metrics.ssim(a, b), metrics.psnr(a, b)
+    s_host, p_host = metrics.ssim(a.cpu(), b.cpu()), metrics.psnr(a.cpu(),
+                                                                  b.cpu())
+    log(f"SSIM card {float(s_dev):.8f} host {float(s_host):.8f}; PSNR card "
+        f"{float(p_dev):.6f} host {float(p_host):.6f} dB")
+    if not (abs(float(s_dev) - float(s_host)) <= METRIC_TOL
+            and abs(float(p_dev) - float(p_host))
+            <= METRIC_TOL * abs(float(p_host))):
+        fail("SSIM / PSNR on the card differ from the host's")
+    log(f"PhaseTimer ({card}):\n{timer.summary()}")
+    log(f"trace: {len(kernels)} kernel events ({trace_mb:.2f} MB), conv "
+        f"kernels {hit}")
+    return lp_counts
+
+
 def main():
     if not (ROOT / "idmvton_tpu_torch" / "ops" / "csrc").is_dir():
         fail("idmvton_tpu_torch/ not found beside chip_smoke.py: run it from "
@@ -2266,20 +2662,8 @@ def main():
     _build.lib()
     log(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s")
 
-    from idmvton_tpu_torch.ops import cuda_attention, cuda_conv, cuda_norm
-    wrappers = {
-        "ln_linear": cuda_norm.ln_linear,
-        "fused_layer_norm": cuda_norm.fused_layer_norm,
-        "gn_spatial_stats": cuda_norm.gn_spatial_stats,
-        "conv3x3": cuda_conv.conv3x3,
-        "conv3x3_hblock": cuda_conv.conv3x3_hblock,
-        "flash_attention_gemm": cuda_attention.flash_attention_gemm,
-        "ln_linear_i8": cuda_norm.ln_linear_i8,
-        "cross_attention_small_kv": cuda_attention.cross_attention_small_kv,
-        "conv3x3_padacc": cuda_conv.conv3x3_padacc,
-        "flash_attention": cuda_attention.flash_attention,
-        "flash_attention_fused_qkv": cuda_attention.flash_attention_fused_qkv,
-    }
+    from idmvton_tpu_torch.parallel.onecard import kernel_wrappers
+    wrappers = kernel_wrappers()
     from idmvton_tpu_torch.cli import infer
 
     with torch.inference_mode():
@@ -2308,9 +2692,11 @@ def main():
         counts = {"graph": check_graph(pipe, inputs, gen, wrappers)}
 
         # -- phase 5: serve 2 requests through the bf16 path -----------------
+        served = []
         counts["bf16"] = serve_requests(
             pipe, inputs, gen, wrappers, "bf16",
-            exact={k: 2 * n for k, n in CONV_PER_REQUEST.items()})
+            exact={k: 2 * n for k, n in CONV_PER_REQUEST.items()},
+            keep=served)
 
         # -- the fp32 decode (VAEConfig.force_upcast) -------------------------
         counts["decode_fp32"] = check_decode_fp32(models, wrappers, gen)
@@ -2379,6 +2765,12 @@ def main():
     with torch.inference_mode():
         counts["face_hand"] = check_face_hand(wrappers, dev, card)
         counts["evaluate"] = check_evaluate(wrappers, dev)
+
+    # -- phase 14: the parallel paths and the utilities ----------------------
+    counts["dp_nccl"] = check_dp_nccl(wrappers, dev, card)
+    counts.update(check_two_ranks(dev, card))
+    with torch.inference_mode():
+        counts["lpips"] = check_utilities(wrappers, dev, card, served[0])
 
     kernels = []
     for name in wrappers:

@@ -10,11 +10,20 @@ train states.
   python -m idmvton_tpu_torch.cli.train --data_dir /path/VITON-HD \\
       --output_dir ckpt_out --train_batch_size 6 --max_steps 1000 \\
       [--micro | --tiny] [--device cpu]
+  torchrun --nproc_per_node N -m idmvton_tpu_torch.cli.train ... [--zero1]
 
 It runs on the card (``--device cuda``, the default) unless asked for the
-CPU. One device: ``--zero1`` is accepted and changes nothing, as in the
-JAX CLI on one device (data parallelism and ZeRO are the parallelism
-slice's work). ``state.step`` counts micro-steps (one a batch); the
+CPU. Under ``torchrun`` (or inside a process group the caller set up) it
+trains data-parallel over every rank (``parallel/``: NCCL between cards,
+gloo between CPU processes): the global batch is ``--train_batch_size``
+x ranks, as in the JAX CLI, each rank loads only its rows of each global
+batch of one shared ``BatchLoader`` order (``shard=``), the gradients
+are averaged, and rank 0 alone logs, evaluates and writes checkpoints
+(img/s counts the global batch).
+``--zero1`` partitions the optimizer moments over the ranks (ZeRO-1); on
+one rank it changes nothing, as in the JAX CLI on one device; a
+checkpoint gathers them first, so a state saved at N ranks resumes at
+any count. ``state.step`` counts micro-steps (one a batch); the
 logging, eval and checkpoint cadence and ``--max_steps`` count optimizer
 steps, which advance once an accumulation boundary, like the reference's
 global_step (train_xl.py:744-747). A checkpoint writes the trained stack
@@ -77,8 +86,8 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--no_remat", action="store_true")
     p.add_argument("--zero1", action="store_true",
-                   help="ZeRO stage 1 in the JAX package; one device here, "
-                        "so accepted and without effect")
+                   help="ZeRO stage 1: partition the optimizer moments over "
+                        "the data-parallel ranks (no effect on one rank)")
     p.add_argument("--tiny", action="store_true",
                    help="tiny random models (smoke tests)")
     p.add_argument("--micro", action="store_true",
@@ -128,11 +137,22 @@ def main(argv=None):
     from idmvton_tpu_torch.train.train_step import (
         copy_to_models_, init_train_state, make_optimizer, make_train_step,
     )
+    from idmvton_tpu_torch.parallel import mesh as pmesh
+    from idmvton_tpu_torch.parallel import zero
     from idmvton_tpu_torch.weights.checkpoint import (
         latest_train_state_step, load_train_state, save_pipeline,
         save_train_state,
     )
+    import torch.distributed as dist
 
+    mesh, rank, data = None, 0, (0, 1)
+    if dist.is_initialized() or "WORLD_SIZE" in os.environ:
+        args.device = str(pmesh.init_distributed(args.device))
+        mesh = pmesh.make_mesh()
+        rank = dist.get_rank()
+        ax = pmesh.mesh_axis(mesh, pmesh.DATA_AXIS)
+        data = (ax.rank, ax.size)
+    n_data = data[1]
     models = load_models(args, dtype)
     device = torch.device(args.device)
     sched = DDPMScheduler(SchedulerConfig.train())
@@ -145,14 +165,19 @@ def main(argv=None):
     state = init_train_state(models, tx)
     step_fn = make_train_step(models, sched, tx, snr_gamma=args.snr_gamma,
                               compute_dtype=dtype,
-                              remat=not args.no_remat)
+                              remat=not args.no_remat, mesh=mesh)
 
     state_dir = args.state_dir or os.path.join(args.output_dir, "state")
     if args.resume_from_checkpoint:
         step0 = latest_train_state_step(args.resume_from_checkpoint)
         if step0 is not None:
             state = load_train_state(args.resume_from_checkpoint, state)
-            print(f"resumed from {args.resume_from_checkpoint} step {step0}")
+            if rank == 0:
+                print(f"resumed from {args.resume_from_checkpoint} step "
+                      f"{step0}")
+    if args.zero1 and n_data > 1:
+        state = zero.zero1_state_sharding(state, mesh)
+    global_batch = args.train_batch_size * n_data
 
     tok_dir = args.tokenizer_dir or (args.pretrained if args.diffusers
                                      else None)
@@ -165,7 +190,7 @@ def main(argv=None):
                         aug_color_jitter=not args.no_aug,
                         aug_affine=not args.no_aug, seed=args.seed)
     loader = BatchLoader(ds, args.train_batch_size, shuffle=True,
-                         drop_last=True, seed=args.seed)
+                         drop_last=True, seed=args.seed, shard=data)
     pipe = None
 
     def run_eval(gstep):
@@ -214,23 +239,29 @@ def main(argv=None):
             if micro % accum:
                 continue  # mid-accumulation: params unchanged, no cadence
             gstep = micro // accum
-            if gstep % args.logging_steps == 0:
-                ips = (args.train_batch_size * accum * args.logging_steps
+            if gstep % args.logging_steps == 0 and rank == 0:
+                ips = (global_batch * accum * args.logging_steps
                        / (time.time() - t0))
                 t0 = time.time()
                 print(f"epoch {epoch} step {gstep}: loss "
-                      f"{float(metrics['loss']):.4f} grad_norm "
+                      f"{float(metrics['loss']):.6f} grad_norm "
                       f"{float(metrics['grad_norm']):.3f} ({ips:.2f} img/s)")
-            if args.eval_steps and gstep % args.eval_steps == 0:
+            if args.eval_steps and gstep % args.eval_steps == 0 \
+                    and rank == 0:
                 os.makedirs(args.output_dir, exist_ok=True)
                 run_eval(gstep)
             if gstep % args.checkpointing_steps == 0 or \
                     (args.max_steps and gstep >= args.max_steps):
-                out = os.path.join(args.output_dir, f"step_{gstep}")
-                save_pipeline(out, copy_to_models_(models, state.trainable,
-                                                   dtype))
-                save_train_state(state_dir, state)
-                print(f"checkpoint -> {out} (+ train state {state_dir})")
+                whole = zero.gather_state(state)    # every rank takes part
+                if rank == 0:
+                    out = os.path.join(args.output_dir, f"step_{gstep}")
+                    save_pipeline(out, copy_to_models_(
+                        models, state.trainable, dtype))
+                    save_train_state(state_dir, whole)
+                    print(f"checkpoint -> {out} (+ train state "
+                          f"{state_dir})")
+                if mesh is not None:
+                    dist.barrier()
             if args.max_steps and gstep >= args.max_steps:
                 return state
     return state

@@ -91,6 +91,28 @@ class VitonHDDataset:
     def _path(self, kind: str, name: str) -> str:
         return os.path.join(self.dataroot, self.phase, kind, name)
 
+    def _augmentation(self):
+        """One sample's random draws, in the reference's order: (flip,
+        color jitter parameters or None, affine scale or None, translation
+        in pixels or None)."""
+        rng = self._rng
+        flip = self.hflip_prob > 0 and rng.random() < self.hflip_prob
+        jitter = scale = shift = None
+        if self.aug_color_jitter and rng.random() < 0.5:
+            from idmvton_tpu_torch.data.augment import sample_jitter_params
+            jitter = sample_jitter_params(rng)
+        if self.aug_affine and rng.random() < 0.5:
+            scale = rng.uniform(0.8, 1.2)
+        if self.aug_affine and rng.random() < 0.5:
+            shift = (rng.uniform(-0.2, 0.2) * self.width,
+                     rng.uniform(-0.2, 0.2) * self.height)
+        return flip, jitter, scale, shift
+
+    def skip(self, index: int) -> None:
+        """Takes sample ``index``'s random draws without loading it, so
+        the samples after it are augmented as if it had been loaded."""
+        self._augmentation()
+
     def __getitem__(self, index: int) -> dict:
         from PIL import Image
         im_name = self.im_names[index]
@@ -105,17 +127,17 @@ class VitonHDDataset:
         pose = normalize_pm1(Image.open(self._path("image-densepose", im_name)), size)
         cloth = normalize_pm1(cloth_pil, size)
 
-        if self.hflip_prob > 0 and self._rng.random() < self.hflip_prob:
+        flip, jitter, scale, shift = self._augmentation()
+        if flip:
             person, mask, pose, cloth = (np.ascontiguousarray(x[:, ::-1])
                                          for x in (person, mask, pose, cloth))
             cloth_pil = cloth_pil.transpose(Image.FLIP_LEFT_RIGHT)
 
-        if self.aug_color_jitter and self._rng.random() < 0.5:
+        if jitter is not None:
             # jitter person + cloth with ONE parameter draw; the CLIP image
             # is computed from the jittered cloth (train_xl.py:161-173,222)
-            from idmvton_tpu_torch.data.augment import (color_jitter,
-                                                  sample_jitter_params)
-            b, c, s, h = sample_jitter_params(self._rng)
+            from idmvton_tpu_torch.data.augment import color_jitter
+            b, c, s, h = jitter
             person = color_jitter((person + 1.0) / 2.0, b, c, s, h) * 2.0 - 1.0
             cloth01 = np.asarray(cloth_pil.convert("RGB"),
                                  np.float32) / 255.0
@@ -124,19 +146,16 @@ class VitonHDDataset:
                 (cloth01 * 255.0).round().astype(np.uint8))
             cloth = normalize_pm1(cloth_pil, size)
 
-        if self.aug_affine and self._rng.random() < 0.5:
+        if scale is not None:
             # scale about center: image/mask/pose, NOT cloth
             # (train_xl.py:176-188)
             from idmvton_tpu_torch.data.augment import affine_nearest
-            sc = self._rng.uniform(0.8, 1.2)
-            person, mask, pose = (affine_nearest(x, scale=sc)
+            person, mask, pose = (affine_nearest(x, scale=scale)
                                   for x in (person, mask, pose))
-        if self.aug_affine and self._rng.random() < 0.5:
+        if shift is not None:
             # translate: image/mask/pose (train_xl.py:190-216)
             from idmvton_tpu_torch.data.augment import affine_nearest
-            tx = self._rng.uniform(-0.2, 0.2) * self.width
-            ty = self._rng.uniform(-0.2, 0.2) * self.height
-            person, mask, pose = (affine_nearest(x, translate=(tx, ty))
+            person, mask, pose = (affine_nearest(x, translate=shift)
                                   for x in (person, mask, pose))
 
         ip_pixels = clip_preprocess(cloth_pil)
@@ -161,13 +180,24 @@ class BatchLoader:
     inference.py:303-314)."""
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = False,
-                 drop_last: bool = False, seed: int = 0, prefetch: bool = True):
+                 drop_last: bool = False, seed: int = 0, prefetch: bool = True,
+                 shard=(0, 1)):
+        """``shard=(rank, ranks)``: yield rank's ``batch_size`` rows of each
+        global batch of ``batch_size * ranks`` in the one order every rank
+        shares (a data-parallel rank's share); the others' samples go
+        through ``dataset.skip``, so a row gets the random draws one
+        loader of the global batch would give it."""
+        rank, ranks = shard
+        if not 0 <= rank < ranks or (ranks > 1 and not drop_last):
+            raise ValueError(f"shard {shard}: a rank of ranks, with "
+                             f"drop_last above one rank")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
         self.prefetch = prefetch
+        self.shard = shard
 
     def _indices(self):
         idx = list(range(len(self.dataset)))
@@ -176,8 +206,8 @@ class BatchLoader:
         return idx
 
     def __len__(self):
-        n = len(self.dataset)
-        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        n, g = len(self.dataset), self.batch_size * self.shard[1]
+        return n // g if self.drop_last else -(-n // g)
 
     def _collate(self, samples):
         batch = {}
@@ -191,11 +221,18 @@ class BatchLoader:
 
     def _iter_batches(self):
         idx = self._indices()
-        for i in range(0, len(idx), self.batch_size):
-            chunk = idx[i:i + self.batch_size]
-            if self.drop_last and len(chunk) < self.batch_size:
+        rank, ranks = self.shard
+        g, lo = self.batch_size * ranks, self.batch_size * rank
+        for i in range(0, len(idx), g):
+            chunk = idx[i:i + g]
+            if self.drop_last and len(chunk) < g:
                 return
-            yield self._collate([self.dataset[j] for j in chunk])
+            for j in chunk[:lo]:
+                self.dataset.skip(j)
+            mine = [self.dataset[j] for j in chunk[lo:lo + self.batch_size]]
+            for j in chunk[lo + self.batch_size:]:
+                self.dataset.skip(j)
+            yield self._collate(mine)
 
     def __iter__(self):
         if not self.prefetch:

@@ -57,6 +57,8 @@ from idmvton_tpu_torch.ops.cuda_norm import (
     ln_linear_supported, supports_fused_ln,
 )
 from idmvton_tpu_torch.ops.dispatch import narrow, resolve
+from idmvton_tpu_torch.parallel import sp as _sp
+from idmvton_tpu_torch.parallel import tp as _tp
 
 
 def _split_heads(x, heads: int):
@@ -69,12 +71,19 @@ def _merge_heads(x):
     return x.reshape(b, s, h * d)
 
 
-def _ln_proj(x, norm, proj, *, geglu=False, impl=None):
+def _ln_proj(x, norm, proj, *, geglu=False, impl=None, tp=None):
     """norm(x) @ proj: the fused kernel where it applies (the W8A8 one for
     an int8 projection), else plain (an int8 projection dequantized, as JAX
     ``pallas_norm.ln_linear`` does where its kernel does not apply). Returns
     the raw product for ``geglu=False``, value * gelu(gate) for
-    ``geglu=True``."""
+    ``geglu=True``. ``tp``: ``proj`` is column-split over that model axis;
+    where autograd records, the (replicated) LayerNorm runs alone and its
+    output enters the split (Megatron's f), so the norm's parameters get
+    the whole gradient."""
+    if tp is not None:
+        if norm is not None and torch.is_grad_enabled() and x.requires_grad:
+            x, norm = layer_norm(norm, x), None
+        x = _tp.enter(x, tp)
     quant = isinstance(proj, QuantLinear)
     w = proj.kernel_i8 if quant else proj.kernel
     if (norm is not None and resolve(impl, x) == "cuda"
@@ -99,7 +108,22 @@ def _ln_proj(x, norm, proj, *, geglu=False, impl=None):
     return value * F.gelu(gate.float()).to(x.dtype)
 
 
+def _project_out(module, x, proj):
+    """``linear(proj, x)``, or its row-parallel form once
+    ``parallel.tp.shard_unet_params`` split it (``module.tp``)."""
+    if module.tp is None:
+        return linear(proj, x)
+    return _tp.row_linear(proj, x, module.tp)
+
+
 class SelfAttention(nn.Module):
+    # the model axis once parallel.tp.shard_unet_params kept this rank's
+    # heads (``heads`` is then the local count)
+    tp = None
+    # the model axis once parallel.sp.shard_spatial split the tokens (and
+    # the garment features) by rows: K / V are gathered, queries stay local
+    spatial = None
+
     def __init__(self, dim, *, heads, head_dim, dtype, device):
         super().__init__()
         inner = heads * head_dim
@@ -113,17 +137,20 @@ class SelfAttention(nn.Module):
         """Keys/values span [own | garment] tokens when ``garment_feat``
         (B, M, C) is given, or (B/2, M, C) with ``garment_uncond_zero``:
         the leading B/2 (CFG uncond) rows then see all-zero garment KV."""
-        heads = self.heads
+        heads, spatial = self.heads, self.spatial
         b = x.shape[0]
         inner = self.to_out.kernel.shape[0]
-        qkv = _ln_proj(x, norm, self.to_qkv, impl=impl)
+        qkv = _ln_proj(x, norm, self.to_qkv, impl=impl, tp=self.tp)
         kv_g = None
         if garment_feat is not None:
+            if spatial is not None:
+                garment_feat = _sp.gather(garment_feat, spatial)
             # garment tokens only contribute K/V: the KV columns of to_qkv
             # (of an int8 to_qkv, dequantized: a bf16 GEMM, not a W8A8 site)
             wk = self.to_qkv.dequantized(qkv.dtype).kernel[:, inner:]
-            kv_g = torch.matmul(garment_feat.to(qkv.dtype), wk.to(qkv.dtype))
-        if (resolve(impl, x) == "cuda"
+            kv_g = torch.matmul(_tp.enter(garment_feat, self.tp).to(qkv.dtype),
+                                wk.to(qkv.dtype))
+        if (spatial is None and resolve(impl, x) == "cuda"
                 and flash_attention_gemm_supported(qkv, heads)):
             uncond = 0
             if kv_g is not None and garment_uncond_zero:
@@ -134,10 +161,12 @@ class SelfAttention(nn.Module):
             out = flash_attention_gemm(narrow(qkv), narrow(kv_g),
                                        heads=heads, uncond_rows=uncond,
                                        fixed_shift=_fixed_shift())
-            return linear(self.to_out, out.to(qkv.dtype))
+            return _project_out(self, out.to(qkv.dtype), self.to_out)
         q = _split_heads(qkv[..., :inner], heads)
         k = _split_heads(qkv[..., inner:2 * inner], heads)
         v = _split_heads(qkv[..., 2 * inner:], heads)
+        if spatial is not None:
+            k, v = _sp.gather(k, spatial), _sp.gather(v, spatial)
         if kv_g is not None:
             if garment_uncond_zero:
                 kv_g = torch.cat([torch.zeros_like(kv_g), kv_g], 0)
@@ -147,10 +176,12 @@ class SelfAttention(nn.Module):
                                       impl=impl)
         else:
             out = sdpa(q, k, v, impl=impl)
-        return linear(self.to_out, _merge_heads(out))
+        return _project_out(self, _merge_heads(out), self.to_out)
 
 
 class CrossAttention(nn.Module):
+    tp = None     # as SelfAttention's
+
     def __init__(self, dim, *, context_dim, heads, head_dim,
                  ip_adapter=False, dtype, device):
         super().__init__()
@@ -170,11 +201,12 @@ class CrossAttention(nn.Module):
         independently normalized softmax (IPAttnProcessor2_0)."""
         heads = self.heads
         with_ip = self.to_kv_ip is not None and ip_num_tokens > 0
+        context = _tp.enter(context, self.tp)
         if resolve(impl, x) == "cuda" and cross_attention_small_kv_supported(
                 self.to_out.kernel.shape[0], heads, context.shape[1]):
             # GEMM-layout small-KV kernel (JAX attention.py:170-187): both
             # softmaxes in one pass over q, no split-heads copies
-            q = _ln_proj(x, norm, self.to_q, impl=impl)
+            q = _ln_proj(x, norm, self.to_q, impl=impl, tp=self.tp)
             if with_ip:
                 out = cross_attention_small_kv(
                     narrow(q),
@@ -186,8 +218,9 @@ class CrossAttention(nn.Module):
                 out = cross_attention_small_kv(
                     narrow(q), narrow(linear(self.to_kv, context)),
                     heads=heads)
-            return linear(self.to_out, out.to(q.dtype))
-        q = _split_heads(_ln_proj(x, norm, self.to_q, impl=impl), heads)
+            return _project_out(self, out.to(q.dtype), self.to_out)
+        q = _split_heads(_ln_proj(x, norm, self.to_q, impl=impl,
+                                  tp=self.tp), heads)
 
         def kv(p, ctx):
             h = linear(p, ctx).reshape(ctx.shape[0], ctx.shape[1], 2, heads,
@@ -202,11 +235,13 @@ class CrossAttention(nn.Module):
         else:
             k, v = kv(self.to_kv, context)
             out = sdpa(q, k, v, impl=impl)
-        return linear(self.to_out, _merge_heads(out))
+        return _project_out(self, _merge_heads(out), self.to_out)
 
 
 class FeedForward(nn.Module):
     """GEGLU feed-forward: proj_in (dim, 2*4dim) laid out [value | gate]."""
+
+    tp = None     # as SelfAttention's: each half keeps this rank's share
 
     def __init__(self, dim, *, mult=4, dtype, device):
         super().__init__()
@@ -215,8 +250,9 @@ class FeedForward(nn.Module):
         self.proj_out = Linear(dim * mult, dim, **kw)
 
     def forward(self, x, *, norm=None, impl=None):
-        h = _ln_proj(x, norm, self.proj_in, geglu=True, impl=impl)
-        return linear(self.proj_out, h)
+        h = _ln_proj(x, norm, self.proj_in, geglu=True, impl=impl,
+                     tp=self.tp)
+        return _project_out(self, h, self.proj_out)
 
 
 class TransformerBlock(nn.Module):

@@ -48,6 +48,7 @@ from idmvton_tpu_torch.ops.cuda_norm import (
 from idmvton_tpu_torch.ops.quant import (
     dequantize_kernel_int8, quantize_kernel_int8,
 )
+from idmvton_tpu_torch.parallel.sp import group_sums, halo
 
 
 def _param(shape, dtype, device):
@@ -131,6 +132,10 @@ def quantize_linear_int8(lin: Linear) -> QuantLinear:
 class Conv(nn.Module):
     """kernel (k, k, in, out) HWIO, optional bias (out,)."""
 
+    # the model axis once parallel.sp.shard_spatial split the rows this
+    # conv sees (``conv2d`` then exchanges halo rows)
+    spatial = None
+
     def __init__(self, in_ch, out_ch, kernel_size=3, *, bias=True, dtype,
                  device):
         super().__init__()
@@ -147,6 +152,8 @@ class Conv(nn.Module):
 
 class Norm(nn.Module):
     """fp32 affine ``scale`` / ``bias`` of a LayerNorm or GroupNorm."""
+
+    spatial = None     # as Conv's (``group_norm`` then sums over the axis)
 
     def __init__(self, channels, *, device):
         super().__init__()
@@ -265,6 +272,29 @@ def conv2d_torch(x, kernel, bias=None, *, stride: int = 1, padding="SAME"):
 
 
 def conv2d(p, x, *, stride: int = 1, padding="SAME", impl=None):
+    """Once ``parallel.sp.shard_spatial`` handed ``p`` its axis
+    (``p.spatial``), ``x`` holds this rank's H rows of the feature map: a
+    3x3 stride-1 SAME conv runs on them with a neighbour's row above and
+    below and drops its two halo output rows; the stride-2 downsample
+    (padding (0, 1) below) takes the next rank's first row."""
+    sp, k = p.spatial, p.kernel
+    if sp is None or k.shape[0] == 1:
+        return _conv2d(p, x, stride=stride, padding=padding, impl=impl)
+    if stride == 2 and padding == ((0, 1), (0, 1)):
+        return _conv2d(p, halo(x, sp, above=0, below=1), stride=2,
+                       padding=((0, 0), (0, 1)), impl=impl)
+    if not (stride == 1 and k.shape[0] == 3
+            and padding in ("SAME", ((1, 1), (1, 1)))):
+        raise ValueError(f"spatial parallelism takes 1x1 convs, 3x3 "
+                         f"stride-1 SAME ones and the downsample, not "
+                         f"{tuple(k.shape)} stride {stride} padding "
+                         f"{padding}")
+    y = _conv2d(p, halo(x, sp, above=1, below=1), stride=1,
+                padding="SAME", impl=impl)
+    return y[:, 1:-1].contiguous()
+
+
+def _conv2d(p, x, *, stride: int, padding, impl):
     k = p.kernel
     if (stride == 1 and tuple(k.shape[:2]) == (3, 3)
             and padding in ("SAME", ((1, 1), (1, 1)))):
@@ -286,14 +316,22 @@ def conv2d(p, x, *, stride: int = 1, padding="SAME", impl=None):
 def group_norm(p, x, *, num_groups: int, eps: float = 1e-5,
                act: Optional[str] = None, impl=None):
     """GroupNorm over channel-last input of any spatial rank, one-pass fp32
-    statistics per channel combined into groups, optional fused SiLU."""
+    statistics per channel combined into groups, optional fused SiLU.
+    Once ``p.spatial`` is set (``parallel.sp.shard_spatial``), ``x`` holds
+    this rank's rows; the per-channel sums and counts of every rank are
+    added before the statistics."""
+    spatial = p.spatial
     b, c = x.shape[0], x.shape[-1]
     g = num_groups
     n_spatial = x.numel() // (b * c)
     if (resolve(impl, x) == "cuda" and gn_stats_supported(x)
             and n_spatial >= 64):
         s1, s2 = gn_spatial_stats(x)
-        mean_c, mean2_c = s1 / n_spatial, s2 / n_spatial
+        mean_c, mean2_c = group_sums(s1, s2, n_spatial, spatial)
+    elif spatial is not None:
+        xf = x.float().reshape(b, -1, c)
+        mean_c, mean2_c = group_sums(xf.sum(1), xf.square().sum(1),
+                                     n_spatial, spatial)
     else:
         xf = x.float().reshape(b, -1, c)
         mean_c, mean2_c = xf.mean(1), xf.square().mean(1)

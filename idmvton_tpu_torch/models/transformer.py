@@ -14,9 +14,14 @@ import torch.nn as nn
 
 from idmvton_tpu_torch.models.attention import TransformerBlock
 from idmvton_tpu_torch.models.layers import Linear, Norm, group_norm, linear
+from idmvton_tpu_torch.parallel import tp as _tp
 
 
 class Transformer2D(nn.Module):
+    # the model axis once parallel.tp.shard_unet_params split proj_in /
+    # proj_out: the blocks run at full width between them
+    tp = None
+
     def __init__(self, channels, *, depth, heads, head_dim, context_dim,
                  num_groups, ip_adapter=False, dtype, device):
         super().__init__()
@@ -39,9 +44,15 @@ class Transformer2D(nn.Module):
         """x (B, H, W, C). consume mode takes one (B or B/2, H*W, C)
         feature per block; emit mode returns them. Returns (out, emitted)."""
         b, h, w, c = x.shape
+        tp = self.tp
         hs = group_norm(self.norm, x, num_groups=self.num_groups, eps=1e-6,
                         impl=impl)
-        hs = linear(self.proj_in, hs.reshape(b, h * w, c))
+        hs = hs.reshape(b, h * w, c)
+        if tp is None:
+            hs = linear(self.proj_in, hs)
+        else:
+            hs = _tp.gather_columns(linear(self.proj_in, _tp.enter(hs, tp)),
+                                    tp)
         emitted = []
         for i, blk in enumerate(self.blocks):
             gf = garment_feats[i] if garment_mode == "consume" else None
@@ -52,5 +63,10 @@ class Transformer2D(nn.Module):
                          impl=impl)
             if garment_mode == "emit":
                 emitted.append(em)
-        hs = linear(self.proj_out, hs)
+        if tp is None:
+            hs = linear(self.proj_out, hs)
+        else:
+            hs = _tp.row_linear(self.proj_out,
+                                _tp.enter(hs, tp).chunk(tp.size, -1)[tp.rank],
+                                tp)
         return hs.reshape(b, h, w, c) + x, tuple(emitted)

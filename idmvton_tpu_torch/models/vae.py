@@ -129,15 +129,22 @@ class VAE(nn.Module):
         return mean, logvar.clamp(-30.0, 20.0)
 
     def encode(self, x, generator: Optional[torch.Generator] = None, *,
-               sample: bool = True):
+               sample: bool = True, noise: Optional[torch.Tensor] = None):
         """Latents scaled by ``scaling_factor``; the posterior mode when
-        ``sample`` is False or no generator is given (JAX ``vae_encode``)."""
+        ``sample`` is False or neither a generator nor ``noise`` is given
+        (JAX ``vae_encode``). ``noise`` (the latents' shape, fp32) is the
+        posterior's standard normal draw in place of one from
+        ``generator``."""
         mean, logvar = self.encode_moments(x)
         z = mean
-        if sample and generator is not None:
+        if sample and (generator is not None or noise is not None):
             std = torch.exp(0.5 * logvar.float())
-            noise = torch.randn(mean.shape, generator=generator,
-                                device=mean.device, dtype=torch.float32)
+            if noise is None:
+                noise = torch.randn(mean.shape, generator=generator,
+                                    device=mean.device, dtype=torch.float32)
+            elif noise.shape != mean.shape:
+                raise ValueError(f"noise {tuple(noise.shape)} is not the "
+                                 f"latents' {tuple(mean.shape)}")
             z = mean + (std * noise).to(mean.dtype)
         return z * torch.tensor(self.cfg.scaling_factor, dtype=z.dtype,
                                 device=z.device)

@@ -82,29 +82,40 @@ def init_state(params: Dict[str, torch.Tensor]) -> dict:
 
 
 def adam_int8_(grads: Dict[str, torch.Tensor], state: dict, *, b1: float,
-               b2: float, eps: float) -> None:
+               b2: float, eps: float, blocks: Tuple[int, int] = None) -> None:
     """JAX ``scale_by_adam_int8``'s update: each gradient in ``grads`` is
     replaced, in place, by its bias-corrected Adam direction (mu / bc1) /
     (sqrt(nu / bc2) + eps), and the quantized moments of its blocks by the
-    new ones; ``state["count"]`` advances once."""
+    new ones; ``state["count"]`` advances once. ``blocks=(lo, hi)``: the
+    state holds only the buffer's blocks lo..hi-1 (ZeRO-1,
+    ``parallel/zero.py``); only the gradients' elements in those blocks are
+    replaced."""
     count = state["count"] + 1
     one = np.float32(1.0)
     bc1 = float(one - np.float32(b1) ** np.float32(count))
     bc2 = float(one - np.float32(b2) ** np.float32(count))
-    offs, _ = layout([g.shape for g in grads.values()])
+    offs, nblocks = layout([g.shape for g in grads.values()])
+    lo, hi = blocks or (0, nblocks)
     for g, o in zip(grads.values(), offs):
         n = g.numel()
         nb = -(-n // BLOCK)
+        first, last = max(o, lo), min(o + nb, hi)
+        if first >= last:
+            continue
         flat = torch.zeros(nb * BLOCK, dtype=torch.float32, device=g.device)
         flat[:n] = g.reshape(-1)
-        gb = flat.view(nb, BLOCK)
-        sl = slice(o, o + nb)
+        gb = flat.view(nb, BLOCK)[first - o:last - o]
+        sl = slice(first - lo, last - lo)
         mu = (b1 * dequantize(state["mu_q"][sl], state["mu_scale"][sl])
               + (1 - b1) * gb)
         nu = (b2 * dequantize(state["nu_q"][sl], state["nu_scale"][sl])
               + (1 - b2) * gb * gb)
         step = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
-        g.copy_(step.view(-1)[:n].view(g.shape))
+        a, b = (first - o) * BLOCK, min((last - o) * BLOCK, n)
+        out = g.view(-1) if g.is_contiguous() else g.reshape(-1)
+        out[a:b] = step.view(-1)[:b - a]
+        if not g.is_contiguous():
+            g.copy_(out.view(g.shape))
         state["mu_q"][sl], state["mu_scale"][sl] = quantize(mu)
         state["nu_q"][sl], state["nu_scale"][sl] = quantize(nu)
     state["count"] = count

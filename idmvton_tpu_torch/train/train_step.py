@@ -23,8 +23,20 @@ train_xl.py:389-394).
   at full width one copy of the masters is 12 GB.
 - Optional min-SNR-gamma loss weighting (train_xl.py:726-742).
 
-One device: JAX's data parallelism (batch sharding, the all-reduce XLA
-inserts) is the parallelism slice's work.
+Over several ranks (``make_train_step(mesh=...)``, ``parallel/``): each
+rank takes its data rank's rows of the global batch and draws the VAE
+sample, the noise and the timesteps for the whole global batch from the
+shared generator, keeping its rows, as JAX draws them from one key and
+shards them (dp ranks at a global batch equal one rank at that batch);
+the gradients are averaged over the data group in buckets after the
+backward (JAX's all-reduce; not ``DistributedDataParallel``, whose hooks
+sit on module parameters, while the step differentiates masters through
+``functional_call``); the loss is the global mean. Under tensor
+parallelism (``parallel.tp.shard_unet_params`` before
+``init_train_state``) the masters of split leaves are this rank's shards
+and the clip norm counts each shard once; under ZeRO-1
+(``parallel.zero.zero1_state_sharding``) each rank updates its slice of
+the moments.
 """
 
 from __future__ import annotations
@@ -34,10 +46,13 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from idmvton_tpu_torch.diffusion.scheduler import DDPMScheduler
 from idmvton_tpu_torch.models.layers import resize_nearest, weights_changed_
+from idmvton_tpu_torch.parallel import mesh as _mesh
+from idmvton_tpu_torch.parallel import zero as _zero
 from idmvton_tpu_torch.pipeline.tryon import TryonModels, encode_prompt_sdxl
 from idmvton_tpu_torch.train import quant_opt
 
@@ -49,6 +64,9 @@ class TrainState:
     step: int                # micro-steps taken (one a train_step call)
     trainable: dict          # {"unet": {name: fp32}, "resampler": {...}}
     opt_state: dict          # make_optimizer's state (Optimizer.init)
+    # set by parallel.zero.zero1_state_sharding: opt_state holds this
+    # rank's slices of the moments
+    zero1: Optional[_zero.Zero1] = None
 
 
 def flat_params(trainable: dict) -> Dict[str, torch.Tensor]:
@@ -60,6 +78,28 @@ def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares over every tensor, fp32
     (``optax.global_norm``)."""
     return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+
+
+@dataclasses.dataclass
+class Parallel:
+    """How a train step spreads over the mesh (``make_train_step(mesh=)``):
+    the data axis (rows, averaged gradients), the model axis and the flat
+    names of the leaves tensor parallelism split over it."""
+    data: _mesh.Axis
+    model: _mesh.Axis
+    sharded: frozenset
+
+    def global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """``global_norm`` of the whole leaves: a split leaf's squares
+        summed over the model group, a replicated leaf's counted once."""
+        rep = [g for k, g in grads.items() if k not in self.sharded]
+        split = [g for k, g in grads.items() if k in self.sharded]
+        sq = sum(t.float().square().sum() for t in rep)
+        if split:
+            part = sum(t.float().square().sum() for t in split)
+            dist.all_reduce(part, group=self.model.group)
+            sq = sq + part
+        return torch.sqrt(sq)
 
 
 # ---------------------------------------------------------------------------
@@ -127,9 +167,14 @@ class Optimizer:
 
     @torch.no_grad()
     def update_(self, grads: Dict[str, torch.Tensor], state: dict,
-                params: Dict[str, torch.Tensor]) -> bool:
+                params: Dict[str, torch.Tensor], *,
+                parallel: Optional[Parallel] = None,
+                zero1: Optional[_zero.Zero1] = None) -> bool:
+        """``parallel``: the clip norm over tensor-parallel shards;
+        ``zero1``: ``state`` holds this rank's slices of the moments."""
+        ctx = (parallel, zero1)
         if self.accum_steps <= 1:
-            self._step(grads, state, params)
+            self._step(grads, state, params, *ctx)
             return True
         # optax.MultiSteps: a running mean of the micro-gradients, acc + (g
         # - acc) / (n + 1); the clip and the inner update once, at the
@@ -141,19 +186,23 @@ class Optimizer:
         if n < self.accum_steps - 1:
             state["mini_step"] = n + 1
             return False
-        self._step(state["acc"], state["inner"], params)
+        self._step(state["acc"], state["inner"], params, *ctx)
         for acc in state["acc"].values():
             acc.zero_()
         state["mini_step"] = 0
         state["gradient_step"] += 1
         return True
 
-    def _step(self, grads, state, params):
+    def _step(self, grads, state, params, parallel=None, zero1=None):
         # optax.clip_by_global_norm: g if |g| < max, else g / |g| * max
-        norm = global_norm(grads.values())
+        norm = (global_norm(grads.values()) if parallel is None
+                else parallel.global_norm(grads))
         if not bool(norm < self.max_grad_norm):
             for g in grads.values():
                 g.div_(norm).mul_(self.max_grad_norm)
+        if zero1 is not None:
+            _zero.update_(self, grads, state, params, zero1)
+            return
         getattr(self, f"_{self.kind}")(grads, state, params)
         for k, p in params.items():
             p.add_(grads[k])      # optax.apply_updates
@@ -273,7 +322,8 @@ def tryon_loss(trainable: dict, models: TryonModels,
                generator: Optional[torch.Generator] = None, *,
                snr_gamma: Optional[float] = None,
                compute_dtype=torch.bfloat16, impl: Optional[str] = None,
-               remat: bool = True, vae_sample: bool = True):
+               remat: bool = True, vae_sample: bool = True,
+               data: Optional[_mesh.Axis] = None):
     """One training loss (reference loop body, train_xl.py:598-742).
 
     batch: person, mask, pose, cloth (B, H, W, C) in [-1, 1] / mask {0, 1};
@@ -281,7 +331,8 @@ def tryon_loss(trainable: dict, models: TryonModels,
     4) fp32 and "timesteps" (B,) int override the in-loss draws (parity
     and accumulation tests), as in JAX. ``generator`` (on the batch's
     device) draws, in order: the VAE posteriors (one batched draw), the
-    noise, the timesteps."""
+    noise, the timesteps. ``data``: the batch is this data rank's rows;
+    each draw is made for the global batch and this rank's rows kept."""
     m = models
     cd = compute_dtype
     params = {c: {n: t.to(cd) if t.dtype == torch.float32 else t
@@ -290,13 +341,26 @@ def tryon_loss(trainable: dict, models: TryonModels,
     mask = batch["mask"].to(cd)
     b, h, w = person.shape[:3]
     dev = person.device
+    n_data = 1 if data is None else data.size
+
+    def rows(t, dim=0):
+        """This data rank's rows of a draw made for the global batch."""
+        return t if data is None else t.narrow(dim, data.rank * b, b)
+
     with torch.no_grad():
         # the frozen towers: no gradient reaches them
         masked = person * (mask < 0.5).to(cd)
+        eps = None
+        if data is not None and vae_sample and generator is not None:
+            f, vc = m.vae.cfg.downscale, m.vae.cfg.latent_channels
+            eps = rows(torch.randn((4, b * n_data, h // f, w // f, vc),
+                                   generator=generator, device=dev,
+                                   dtype=torch.float32), 1).reshape(
+                4 * b, h // f, w // f, vc)
         model_input, masked_lat, pose_lat, cloth_lat = m.vae.encode(
             torch.cat([person, masked, batch["pose"].to(cd),
                        batch["cloth"].to(cd)]),
-            generator, sample=vae_sample).chunk(4)
+            generator, sample=vae_sample, noise=eps).chunk(4)
         lh, lw = model_input.shape[1:3]
         mask_lat = resize_nearest(mask, (lh, lw))
         prompt_embeds, pooled = encode_prompt_sdxl(
@@ -312,13 +376,15 @@ def tryon_loss(trainable: dict, models: TryonModels,
     # noise and uniform timesteps (train_xl.py:619-627)
     noise = batch.get("noise")
     if noise is None:
-        noise = torch.randn(model_input.shape, generator=generator,
-                            device=dev, dtype=torch.float32)
+        noise = rows(torch.randn((b * n_data,) + model_input.shape[1:],
+                                 generator=generator, device=dev,
+                                 dtype=torch.float32))
     noise = noise.to(dev, torch.float32)
     t = batch.get("timesteps")
     if t is None:
-        t = torch.randint(0, scheduler.cfg.num_train_timesteps, (b,),
-                          generator=generator, device=dev)
+        t = rows(torch.randint(0, scheduler.cfg.num_train_timesteps,
+                               (b * n_data,), generator=generator,
+                               device=dev))
     t_host = t.cpu()       # the scheduler's tables index on the host
     t = t.to(dev)
     noisy = scheduler.add_noise(model_input, noise.to(cd), t_host)
@@ -368,12 +434,25 @@ def tryon_loss(trainable: dict, models: TryonModels,
 def make_train_step(models: TryonModels, scheduler: DDPMScheduler,
                     tx: Optimizer, *, snr_gamma: Optional[float] = None,
                     compute_dtype=torch.bfloat16, impl: Optional[str] = None,
-                    remat: bool = True, vae_sample: bool = True):
+                    remat: bool = True, vae_sample: bool = True,
+                    mesh=None):
     """Returns ``train_step(state, batch, generator=None) -> (state,
     metrics)``: one micro-step; with accumulation (``make_optimizer``
     accum_steps > 1) the parameters change only at its boundary. The state
     is updated in place and returned; metrics hold the loss and the global
-    norm of this micro-step's gradients, as 0-dim fp32 tensors."""
+    norm of this micro-step's gradients, as 0-dim fp32 tensors.
+
+    ``mesh`` (``parallel.mesh.make_mesh``): ``batch`` is this data rank's
+    rows (``shard_batch``) and ``generator`` is seeded alike on every
+    rank; the gradients are averaged over the data group, the loss is the
+    global mean, and a tensor-parallel TryonNet's shards and a ZeRO-1
+    state's slices are updated as ``parallel/`` sets them."""
+    par = None
+    if mesh is not None:
+        par = Parallel(_mesh.mesh_axis(mesh, _mesh.DATA_AXIS),
+                       _mesh.mesh_axis(mesh, _mesh.MODEL_AXIS),
+                       frozenset(f"unet.{n}" for n in
+                                 getattr(models.unet, "tp_sharded", ())))
 
     def train_step(state: TrainState, batch: dict,
                    generator: Optional[torch.Generator] = None):
@@ -381,14 +460,21 @@ def make_train_step(models: TryonModels, scheduler: DDPMScheduler,
         loss = tryon_loss(state.trainable, models, scheduler, batch,
                           generator, snr_gamma=snr_gamma,
                           compute_dtype=compute_dtype, impl=impl,
-                          remat=remat, vae_sample=vae_sample)
+                          remat=remat, vae_sample=vae_sample,
+                          data=None if par is None else par.data)
         # a parameter the loss does not read gets a zero gradient, as in JAX
         grads = {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(params.items(), torch.autograd.grad(
                      loss, list(params.values()), allow_unused=True))}
-        gnorm = global_norm(grads.values())
-        tx.update_(grads, state.opt_state, params)
+        loss = loss.detach()
+        if par is None:
+            gnorm = global_norm(grads.values())
+        else:
+            _mesh.all_reduce_mean_(list(grads.values()) + [loss], par.data)
+            gnorm = par.global_norm(grads)
+        tx.update_(grads, state.opt_state, params, parallel=par,
+                   zero1=state.zero1)
         state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": gnorm}
+        return state, {"loss": loss, "grad_norm": gnorm}
 
     return train_step

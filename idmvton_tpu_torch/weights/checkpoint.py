@@ -393,7 +393,11 @@ def save_train_state(path: str, state, *, keep: int = 3) -> str:
     keeps the ``keep`` newest states. The port's own format: JAX's is
     orbax's (``checkpoint.py:152-194``). The reference's
     ``--resume_from_checkpoint`` is dead code (train_xl.py:259,469); here
-    resume is real. Returns the state's directory."""
+    resume is real. Returns the state's directory. A ZeRO-1 state is
+    gathered first (``parallel.zero.gather_state``, on every rank)."""
+    if getattr(state, "zero1", None) is not None:
+        raise ValueError("a ZeRO-1 state holds this rank's slices of the "
+                         "moments: save parallel.zero.gather_state(state)")
     os.makedirs(path, exist_ok=True)
     tensors, scalars = {}, {}
     _flatten_state(_state_tree(state), "", tensors, scalars)
