@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import html
 import io
 import json
@@ -31,6 +32,8 @@ import urllib.parse
 
 import numpy as np
 import torch
+
+from idmvton_tpu_torch.utils import profiling
 
 NEGATIVE_PROMPT = "monochrome, lowres, bad anatomy, worst quality, low quality"
 
@@ -267,35 +270,34 @@ class TryonService:
         mask layer to the size), CLIP's preprocess of the garment; then
         ``tryon_arrays``; then the crop pasted back. ``stage_seconds``, when
         given, receives each stage's seconds (crop, openpose, parsing,
-        mask, densepose, tryon)."""
+        mask, densepose, tryon), each stage ending in a device synchronize.
+        A stage is the span ``demo.<stage>`` (``utils.profiling``)."""
         from PIL import Image
 
         from idmvton_tpu_torch.data.image import clip_preprocess
-        from idmvton_tpu_torch.pipeline.tryon import _Phases
 
-        clock = _Phases(stage_seconds, self.device)
-        person = person.convert("RGB")
-        garment = garment.convert("RGB")
-        crop_box = None
-        original = person
-        if auto_crop:
-            person, crop_box = self.auto_crop_3_4(person)
-        w, h = self.size
-        person_resized = np.asarray(person.resize((w, h), Image.BICUBIC))
-        small = manual = None
-        if auto_mask or mask_image is None:
-            small = np.asarray(person.resize((384, 512)))
-        else:
-            # hand-drawn layer: any non-black pixel is mask (the
-            # reference's pil_to_binary_mask, threshold 0)
-            manual = np.asarray(mask_image.convert("RGB").resize((w, h))
-                                .convert("L")) > 0
-        cloth = np.asarray(garment.resize((w, h), Image.BICUBIC))
-        ip = clip_preprocess(garment)
-        clock("crop")
+        with self._stage("crop", stage_seconds):
+            person = person.convert("RGB")
+            garment = garment.convert("RGB")
+            crop_box = None
+            original = person
+            if auto_crop:
+                person, crop_box = self.auto_crop_3_4(person)
+            w, h = self.size
+            person_resized = np.asarray(person.resize((w, h), Image.BICUBIC))
+            small = manual = None
+            if auto_mask or mask_image is None:
+                small = np.asarray(person.resize((384, 512)))
+            else:
+                # hand-drawn layer: any non-black pixel is mask (the
+                # reference's pil_to_binary_mask, threshold 0)
+                manual = np.asarray(mask_image.convert("RGB").resize((w, h))
+                                    .convert("L")) > 0
+            cloth = np.asarray(garment.resize((w, h), Image.BICUBIC))
+            ip = clip_preprocess(garment)
         out, mask_gray = self.tryon_arrays(
             person_resized, cloth, ip, desc, small=small, mask=manual,
-            steps=steps, seed=seed, clock=clock)
+            steps=steps, seed=seed, stage_seconds=stage_seconds)
         out, mask_gray = Image.fromarray(out), Image.fromarray(mask_gray)
         if crop_box is not None:
             out = out.resize((crop_box[2] - crop_box[0],
@@ -305,21 +307,20 @@ class TryonService:
             return full, mask_gray
         return out, mask_gray
 
-    def auto_mask(self, small: np.ndarray, *, clock=None) -> np.ndarray:
+    def _stage(self, name: str, stage_seconds):
+        """The span ``demo.<name>``; with a ``stage_seconds`` dict it ends
+        in a device synchronize and its seconds go into the dict."""
+        return profiling.timed(f"demo.{name}", stage_seconds, name,
+                               self.device)
+
+    def auto_mask(self, small: np.ndarray) -> np.ndarray:
         """The auto mask of a (512, 384, 3) uint8 person: OpenPose
         keypoints, SCHP labels, ``get_mask_location("hd", "upper_body")``;
         returns it as a (512, 384) uint8 array of 0 / 255."""
-        from idmvton_tpu_torch.preprocess.agnostic_mask import (
-            get_mask_location,
-        )
-        clock = clock or (lambda name: None)
         with self.lock:
             keypoints = self.openpose(small)
-            clock("openpose")
             parse = self.parsing.labels(small)
-            clock("parsing")
-        mask_pil, _ = get_mask_location("hd", "upper_body", parse, keypoints)
-        return np.asarray(mask_pil)
+        return _mask_of(keypoints, parse)
 
     def pose_image(self, person: np.ndarray) -> np.ndarray:
         """DensePose's painted pose image of a (H, W, 3) uint8 person at
@@ -329,42 +330,53 @@ class TryonService:
 
     def tryon_arrays(self, person: np.ndarray, cloth: np.ndarray,
                      ip: np.ndarray, desc: str, *, small=None, mask=None,
-                     steps: int = 30, seed: int = 42, clock=None):
+                     steps: int = 30, seed: int = 42, stage_seconds=None):
         """The array core. person, cloth: (H, W, 3) uint8 at the service's
         size; ip: the garment's (224, 224, 3) CLIP-normalized pixels;
         ``mask`` (H, W) bool, the drawn layer, or None for the auto mask
         from ``small``, the (512, 384, 3) uint8 person. Returns (result,
-        masked-gray preview), (H, W, 3) uint8 each. ``clock(name)`` ends
-        each stage. The whole request runs under ``lock``."""
-        with self.lock:
-            return self._tryon_arrays(person, cloth, ip, desc, small=small,
-                                      mask=mask, steps=steps, seed=seed,
-                                      clock=clock)
-
-    def _tryon_arrays(self, person, cloth, ip, desc, *, small, mask, steps,
-                      seed, clock):
+        masked-gray preview), (H, W, 3) uint8 each. ``stage_seconds``:
+        ``tryon``'s. The whole request runs under ``lock``; the wait for it
+        counts in the request's first stage (openpose, or densepose with a
+        drawn mask)."""
         from PIL import Image
 
-        from idmvton_tpu_torch.cli.infer import resize_ip_pixels
         from idmvton_tpu_torch.data.image import (
             denormalize_to_uint8, load_mask,
         )
 
-        clock = clock or (lambda name: None)
         w, h = self.size
-        if mask is None:
-            m = self.auto_mask(small, clock=clock)
-            mask = load_mask(Image.fromarray(m), (w, h))
-            clock("mask")
-        else:
-            mask = np.asarray(mask, np.float32)[..., None]
-        # masked-gray preview ((1 - mask) * normalized person, shown as
-        # (x + 1) / 2), returned beside the result
-        person_pm1 = person.astype(np.float32) / 255.0 * 2.0 - 1.0
-        mask_gray = denormalize_to_uint8(((1.0 - mask) * person_pm1)[None])[0]
+        drawn = mask is not None
+        with contextlib.ExitStack() as hold:
+            if not drawn:
+                with self._stage("openpose", stage_seconds):
+                    hold.enter_context(self.lock)
+                    keypoints = self.openpose(small)
+                with self._stage("parsing", stage_seconds):
+                    parse = self.parsing.labels(small)
+                with self._stage("mask", stage_seconds):
+                    mask = load_mask(
+                        Image.fromarray(_mask_of(keypoints, parse)), (w, h))
+            with self._stage("densepose", stage_seconds):
+                hold.enter_context(self.lock)       # re-entrant
+                if drawn:
+                    mask = np.asarray(mask, np.float32)[..., None]
+                # masked-gray preview ((1 - mask) * normalized person, shown
+                # as (x + 1) / 2), returned beside the result
+                person_pm1 = person.astype(np.float32) / 255.0 * 2.0 - 1.0
+                mask_gray = denormalize_to_uint8(
+                    ((1.0 - mask) * person_pm1)[None])[0]
+                pose_rgb = self.densepose(person)
+            with self._stage("tryon", stage_seconds):
+                return self._try_on(person_pm1, mask, pose_rgb, cloth, ip,
+                                    desc, steps, seed), mask_gray
 
-        pose_rgb = self.pose_image(person)
-        clock("densepose")
+    def _try_on(self, person_pm1, mask, pose_rgb, cloth, ip, desc, steps,
+                seed):
+        """The try-on of the prepared arrays: the result, (H, W, 3) uint8."""
+        from idmvton_tpu_torch.cli.infer import resize_ip_pixels
+        from idmvton_tpu_torch.data.image import denormalize_to_uint8
+
         caption = "model is wearing " + desc
         caption_cloth = "a photo of " + desc
         dev, dtype = self.device, self.dtype
@@ -395,9 +407,15 @@ class TryonService:
         )
         generator = torch.Generator(device=dev).manual_seed(seed)
         images = self._gen(steps)(generator, **inputs)
-        out = denormalize_to_uint8(images.float().cpu().numpy())[0]
-        clock("tryon")
-        return out, mask_gray
+        return denormalize_to_uint8(images.float().cpu().numpy())[0]
+
+
+def _mask_of(keypoints, parse) -> np.ndarray:
+    """``get_mask_location("hd", "upper_body")`` of OpenPose's keypoints
+    and SCHP's labels, a (512, 384) uint8 array of 0 / 255."""
+    from idmvton_tpu_torch.preprocess.agnostic_mask import get_mask_location
+    mask_pil, _ = get_mask_location("hd", "upper_body", parse, keypoints)
+    return np.asarray(mask_pil)
 
 
 def make_handler(service: TryonService):

@@ -32,17 +32,20 @@ The kernel wrappers count launches in Python, which a replay does not run.
 ``CountedCapture`` saves the counters before a capture and restores them
 after it, so the capture counts nothing, and adds the capture's increments
 at every replay: a replayed step counts what an eager step counts.
+
+The capture is the ``graph.capture`` span (``utils.profiling``), and the
+counter ``graph.capture_ns`` sums the captures' nanoseconds.
 """
 
 from __future__ import annotations
 
 import os
-import time
 from typing import Callable, Optional
 
 import torch
 
 from idmvton_tpu_torch.models.layers import weights_version
+from idmvton_tpu_torch.utils import profiling
 
 
 def launch_counters() -> dict:
@@ -165,7 +168,6 @@ class StepGraph:
         self.idx = torch.zeros(1, dtype=torch.int64, device=dev)
         self.graph = None
         self.counts = None
-        self.capture_seconds = None
 
     def start(self, table, latents, cond, feats=None, blend=None):
         """Copies a request into the static buffers: its step table (a
@@ -217,11 +219,11 @@ class StepGraph:
             self._run()
         torch.cuda.current_stream(dev).wait_stream(stream)
         torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with CountedCapture() as counts:
-            with torch.cuda.graph(graph, stream=stream):
-                self._run()
-        torch.cuda.synchronize(dev)
-        self.capture_seconds = time.perf_counter() - t0
+        with profiling.span("graph.capture") as capture:
+            graph = torch.cuda.CUDAGraph()
+            with CountedCapture() as counts:
+                with torch.cuda.graph(graph, stream=stream):
+                    self._run()
+            torch.cuda.synchronize(dev)
+        profiling.count("graph.capture_ns", capture.end_ns - capture.start_ns)
         return graph, counts

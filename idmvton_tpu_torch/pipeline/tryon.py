@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import time
 from typing import Optional
 
 import numpy as np
@@ -53,6 +52,7 @@ from idmvton_tpu_torch.ops.dispatch import resolve
 from idmvton_tpu_torch.pipeline.graph import (
     GraphCache, StepGraph, graph_key, weights_fingerprint,
 )
+from idmvton_tpu_torch.utils.profiling import span, timed
 
 COMPONENTS = ("unet", "garm", "vae", "clip_l", "clip_g", "vision",
               "resampler")
@@ -187,25 +187,11 @@ def replicate_cond(cond: dict, n: int) -> dict:
     return {k: rep(v) for k, v in cond.items()}
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-class _Phases:
-    """Wall seconds of a request's phases into ``out`` (when given), each
-    phase ending in a device synchronize."""
-
-    def __init__(self, out: Optional[dict], device):
-        self.out, self.device = out, device
-        self.clock = time.perf_counter()
-
-    def __call__(self, name):
-        if self.out is not None:
-            _sync(self.device)
-            now = time.perf_counter()
-            self.out[name] = now - self.clock
-            self.clock = now
+def _phase(name: str, phase_seconds: Optional[dict], device):
+    """The request's phase ``name`` as the span ``serve.<name>``; with a
+    ``phase_seconds`` dict it ends in a device synchronize and its wall
+    seconds go into the dict."""
+    return timed(f"serve.{name}", phase_seconds, name, device)
 
 
 def _blend(lat, image_lat, noise, mask_lat, row, sched):
@@ -252,31 +238,34 @@ class TryonPipeline:
         and cloth run as one batched call: one posterior draw from the
         generator."""
         m = self.models
-        if prompt_embeds is None:
-            prompt_embeds, pooled = encode_prompt_sdxl(
-                m, prompt_ids_l, prompt_ids_g, clip_skip=clip_skip)
-        else:
-            if pooled_prompt_embeds is None:
-                raise ValueError("prompt_embeds requires pooled_prompt_embeds")
-            pooled = pooled_prompt_embeds
-        if negative_prompt_embeds is None:
-            neg_embeds, neg_pooled = encode_prompt_sdxl(
-                m, neg_ids_l, neg_ids_g, clip_skip=clip_skip)
-        else:
-            if negative_pooled_prompt_embeds is None:
-                raise ValueError("negative_prompt_embeds requires "
-                                 "negative_pooled_prompt_embeds")
-            neg_embeds = negative_prompt_embeds
-            neg_pooled = negative_pooled_prompt_embeds
-        if cloth_prompt_embeds is None:
-            cloth_embeds, _ = encode_prompt_sdxl(
-                m, cloth_ids_l, cloth_ids_g, clip_skip=clip_skip)
-        else:
-            cloth_embeds = cloth_prompt_embeds
+        with span("encode.text"):
+            if prompt_embeds is None:
+                prompt_embeds, pooled = encode_prompt_sdxl(
+                    m, prompt_ids_l, prompt_ids_g, clip_skip=clip_skip)
+            else:
+                if pooled_prompt_embeds is None:
+                    raise ValueError(
+                        "prompt_embeds requires pooled_prompt_embeds")
+                pooled = pooled_prompt_embeds
+            if negative_prompt_embeds is None:
+                neg_embeds, neg_pooled = encode_prompt_sdxl(
+                    m, neg_ids_l, neg_ids_g, clip_skip=clip_skip)
+            else:
+                if negative_pooled_prompt_embeds is None:
+                    raise ValueError("negative_prompt_embeds requires "
+                                     "negative_pooled_prompt_embeds")
+                neg_embeds = negative_prompt_embeds
+                neg_pooled = negative_pooled_prompt_embeds
+            if cloth_prompt_embeds is None:
+                cloth_embeds, _ = encode_prompt_sdxl(
+                    m, cloth_ids_l, cloth_ids_g, clip_skip=clip_skip)
+            else:
+                cloth_embeds = cloth_prompt_embeds
 
-        ip_cond = m.resampler(m.vision(ip_pixels)["penultimate"])
-        ip_uncond = m.resampler(
-            m.vision(torch.zeros_like(ip_pixels))["penultimate"])
+        with span("encode.vision"):
+            ip_cond = m.resampler(m.vision(ip_pixels)["penultimate"])
+            ip_uncond = m.resampler(
+                m.vision(torch.zeros_like(ip_pixels))["penultimate"])
         return self._cond(
             generator, person=person, mask=mask, pose=pose, cloth=cloth,
             masked_image_latents=masked_image_latents, vae_sample=vae_sample,
@@ -298,15 +287,16 @@ class TryonPipeline:
         dtype = person.dtype
         prompt_embeds, pooled, neg_embeds, neg_pooled, cloth_embeds = text
         ip_uncond, ip_cond = ip
-        if masked_image_latents is not None:
-            pose_lat, cloth_lat = m.vae.encode(
-                torch.cat([pose, cloth]), generator,
-                sample=vae_sample).chunk(2)
-            masked_lat = masked_image_latents.to(dtype)
-        else:
-            masked_lat, pose_lat, cloth_lat = m.vae.encode(
-                torch.cat([person * (mask < 0.5).to(dtype), pose, cloth]),
-                generator, sample=vae_sample).chunk(3)
+        with span("encode.vae"):
+            if masked_image_latents is not None:
+                pose_lat, cloth_lat = m.vae.encode(
+                    torch.cat([pose, cloth]), generator,
+                    sample=vae_sample).chunk(2)
+                masked_lat = masked_image_latents.to(dtype)
+            else:
+                masked_lat, pose_lat, cloth_lat = m.vae.encode(
+                    torch.cat([person * (mask < 0.5).to(dtype), pose,
+                               cloth]), generator, sample=vae_sample).chunk(3)
         mask_lat = resize_nearest(mask, (img_h // ds, img_w // ds))
         context = torch.cat([torch.cat([neg_embeds, ip_uncond], 1),
                              torch.cat([prompt_embeds, ip_cond], 1)], 0)
@@ -357,20 +347,23 @@ class TryonPipeline:
                 pooled_n = inputs["negative_pooled_prompt_embeds"]
                 cloth_embeds = inputs["cloth_prompt_embeds"]
             else:
-                ids_l = torch.cat([inputs["prompt_ids_l"],
-                                   inputs["neg_ids_l"],
-                                   inputs["cloth_ids_l"]], 0)
-                ids_g = torch.cat([inputs["prompt_ids_g"],
-                                   inputs["neg_ids_g"],
-                                   inputs["cloth_ids_g"]], 0)
-                embeds, pooled = encode_prompt_sdxl(m, ids_l, ids_g,
-                                                    clip_skip=clip_skip)
-                prompt_embeds, neg_embeds, cloth_embeds = embeds.chunk(3)
-                pooled_p, pooled_n, _ = pooled.chunk(3)
+                with span("encode.text"):
+                    ids_l = torch.cat([inputs["prompt_ids_l"],
+                                       inputs["neg_ids_l"],
+                                       inputs["cloth_ids_l"]], 0)
+                    ids_g = torch.cat([inputs["prompt_ids_g"],
+                                       inputs["neg_ids_g"],
+                                       inputs["cloth_ids_g"]], 0)
+                    embeds, pooled = encode_prompt_sdxl(m, ids_l, ids_g,
+                                                        clip_skip=clip_skip)
+                    prompt_embeds, neg_embeds, cloth_embeds = embeds.chunk(3)
+                    pooled_p, pooled_n, _ = pooled.chunk(3)
 
-            ip_pixels = inputs["ip_pixels"]
-            vis = m.vision(torch.cat([torch.zeros_like(ip_pixels), ip_pixels]))
-            ip = m.resampler(vis["penultimate"]).chunk(2)
+            with span("encode.vision"):
+                ip_pixels = inputs["ip_pixels"]
+                vis = m.vision(torch.cat([torch.zeros_like(ip_pixels),
+                                          ip_pixels]))
+                ip = m.resampler(vis["penultimate"]).chunk(2)
             return self._cond(
                 generator, person=inputs["person"], mask=inputs["mask"],
                 pose=inputs["pose"], cloth=inputs["cloth"],
@@ -478,20 +471,24 @@ class TryonPipeline:
 
         steps = None
         if graph:
-            steps = self.step_graph(cond, lat, feats=feats, blend=blend,
-                                    guidance_scale=guidance_scale,
-                                    guidance_rescale=guidance_rescale,
-                                    impl=impl)
+            with span("graph.lookup"):
+                steps = self.step_graph(cond, lat, feats=feats, blend=blend,
+                                        guidance_scale=guidance_scale,
+                                        guidance_rescale=guidance_rescale,
+                                        impl=impl)
             steps.start(table, lat, cond, feats, blend)
         for i in range(len(ts)):
             if steps is not None:
-                steps.step(noise_at(i))
+                mode = "capture" if steps.graph is None else "replay"
+                with span("serve.step", mode=mode):
+                    steps.step(noise_at(i))
                 lat = steps.lat
             else:
-                lat = self._step(cond, lat, table[i], noise_at(i), feats,
-                                 blend, guidance_scale=guidance_scale,
-                                 guidance_rescale=guidance_rescale,
-                                 impl=impl)
+                with span("serve.step", mode="eager"):
+                    lat = self._step(cond, lat, table[i], noise_at(i), feats,
+                                     blend, guidance_scale=guidance_scale,
+                                     guidance_rescale=guidance_rescale,
+                                     impl=impl)
             if callback is not None:
                 if steps is not None:
                     lat = lat.clone()
@@ -618,62 +615,71 @@ class TryonPipeline:
                   denoising_end: Optional[float] = None, latents_in=None,
                   output_type: str = "image",
                   phase_seconds: Optional[dict] = None, graph: bool = False):
-        phase = _Phases(phase_seconds, person.device)
-        cond = self.encode_conditioning(
-            generator, person=person, mask=mask, pose=pose, cloth=cloth,
-            prompt_ids_l=prompt_ids_l, prompt_ids_g=prompt_ids_g,
-            neg_ids_l=neg_ids_l, neg_ids_g=neg_ids_g,
-            cloth_ids_l=cloth_ids_l, cloth_ids_g=cloth_ids_g,
-            ip_pixels=ip_pixels, vae_sample=vae_sample,
-            micro_conditioning=micro_conditioning, clip_skip=clip_skip,
-            prompt_embeds=prompt_embeds,
-            pooled_prompt_embeds=pooled_prompt_embeds,
-            negative_prompt_embeds=negative_prompt_embeds,
-            negative_pooled_prompt_embeds=negative_pooled_prompt_embeds,
-            cloth_prompt_embeds=cloth_prompt_embeds,
-            masked_image_latents=masked_image_latents)
-        return self._finish(
-            generator, cond, person, phase,
-            num_images_per_prompt=num_images_per_prompt,
-            vae_sample=vae_sample, output_type=output_type, graph=graph,
+        denoise_kw = dict(
             num_steps=num_steps, guidance_scale=guidance_scale,
             guidance_rescale=guidance_rescale, strength=strength,
             garment_cache=garment_cache, inpaint_blend=inpaint_blend,
             init_noise=init_noise, step_noise=step_noise,
             denoising_start=denoising_start, denoising_end=denoising_end,
             latents_in=latents_in, timesteps=timesteps, impl=impl)
+        with span("serve.request"):
+            with _phase("encode", phase_seconds, person.device):
+                cond = self.encode_conditioning(
+                    generator, person=person, mask=mask, pose=pose,
+                    cloth=cloth, prompt_ids_l=prompt_ids_l,
+                    prompt_ids_g=prompt_ids_g, neg_ids_l=neg_ids_l,
+                    neg_ids_g=neg_ids_g, cloth_ids_l=cloth_ids_l,
+                    cloth_ids_g=cloth_ids_g, ip_pixels=ip_pixels,
+                    vae_sample=vae_sample,
+                    micro_conditioning=micro_conditioning,
+                    clip_skip=clip_skip, prompt_embeds=prompt_embeds,
+                    pooled_prompt_embeds=pooled_prompt_embeds,
+                    negative_prompt_embeds=negative_prompt_embeds,
+                    negative_pooled_prompt_embeds=(
+                        negative_pooled_prompt_embeds),
+                    cloth_prompt_embeds=cloth_prompt_embeds,
+                    masked_image_latents=masked_image_latents)
+                image_latents = self._image_latents(
+                    generator, person, num_images_per_prompt, vae_sample,
+                    denoise_kw)
+            return self._finish(
+                generator, cond, person, image_latents, phase_seconds,
+                num_images_per_prompt=num_images_per_prompt,
+                output_type=output_type, graph=graph, **denoise_kw)
 
-    def _finish(self, generator, cond, person, phase, *,
-                num_images_per_prompt, vae_sample, output_type, graph,
-                **denoise_kw):
-        """A request from its conditioning on: ``replicate_cond``, the
-        person image's latents (when ``strength`` < 1, ``inpaint_blend`` or
-        ``denoising_start`` needs them), the denoise loop, the decode."""
+    def _image_latents(self, generator, person, n, vae_sample, denoise_kw):
+        """The person image's latents, each row repeated ``n`` times, when
+        ``strength`` < 1, ``inpaint_blend`` or ``denoising_start`` needs
+        them; else None."""
+        start, _ = check_denoising_range(denoise_kw["denoising_start"],
+                                         denoise_kw["denoising_end"])
+        if not (denoise_kw["strength"] < 1.0 or denoise_kw["inpaint_blend"]
+                or start is not None):
+            return None
+        with span("encode.vae"):
+            return self.models.vae.encode(
+                person, generator, sample=vae_sample).repeat_interleave(n, 0)
+
+    def _finish(self, generator, cond, person, image_latents, phase_seconds,
+                *, num_images_per_prompt, output_type, graph, **denoise_kw):
+        """A request from its conditioning and the person image's latents
+        on: ``replicate_cond`` and the denoise loop, then the decode, each
+        phase a span (``_phase``)."""
         m = self.models
         n = num_images_per_prompt
         b, img_h, img_w, _ = person.shape
         ds = m.vae_cfg.downscale
-        cond = replicate_cond(cond, n)
-        start, _ = check_denoising_range(denoise_kw["denoising_start"],
-                                         denoise_kw["denoising_end"])
-        image_latents = None
-        if (denoise_kw["strength"] < 1.0 or denoise_kw["inpaint_blend"]
-                or start is not None):
-            image_latents = m.vae.encode(
-                person, generator, sample=vae_sample).repeat_interleave(n, 0)
-        phase("encode")
-        latents = self._denoise(
-            generator, cond,
-            latent_shape=(b * n, img_h // ds, img_w // ds,
-                          m.vae_cfg.latent_channels),
-            dtype=person.dtype, image_latents=image_latents, graph=graph,
-            **denoise_kw)
-        phase("denoise")
+        with _phase("denoise", phase_seconds, person.device):
+            latents = self._denoise(
+                generator, replicate_cond(cond, n),
+                latent_shape=(b * n, img_h // ds, img_w // ds,
+                              m.vae_cfg.latent_channels),
+                dtype=person.dtype, image_latents=image_latents, graph=graph,
+                **denoise_kw)
         if output_type == "latent":
             return latents
-        images = self.decode(latents)
-        phase("decode")
-        return images
+        with _phase("decode", phase_seconds, person.device):
+            return self.decode(latents)
 
     def generate(self, generator, **kw):
         """The whole generation, run eagerly: ``encode_conditioning``,
@@ -684,7 +690,10 @@ class TryonPipeline:
         noises must have B * n rows), ``output_type`` ("image", or "latent"
         for the raw latents a successor run takes as ``latents_in``),
         ``phase_seconds`` (a dict for the encode / denoise / decode wall
-        times) and ``eta``, which DDPM ignores. Returns images (B * n, H,
+        times, each phase ending in a device synchronize) and ``eta``,
+        which DDPM ignores. A request is the span ``serve.request``
+        (``utils.profiling``), its phases ``serve.encode`` /
+        ``serve.denoise`` / ``serve.decode``. Returns images (B * n, H,
         W, 3) in [-1, 1].
 
         The generator gives, in this order: ``encode_conditioning``'s VAE
@@ -761,7 +770,8 @@ class TryonPipeline:
         steps run, replace the generator's draws; ``latents_in`` starts a
         ``denoising_start`` run. A ``phase_seconds`` dict receives the
         encode / denoise / decode wall times (each phase ends in a device
-        synchronize).
+        synchronize). The spans are ``generate``'s, each step a
+        ``serve.step`` whose ``mode`` is "replay", "capture" or "eager".
 
         The generator gives, in this order: the staged encoder's VAE
         posterior sample, the person image's (when ``strength`` < 1,
@@ -787,19 +797,24 @@ class TryonPipeline:
                latents_in=None, phase_seconds: Optional[dict] = None,
                **inputs):
             person = inputs["person"]
-            phase = _Phases(phase_seconds, person.device)
-            return self._finish(
-                generator, encode(generator, inputs), person, phase,
-                num_images_per_prompt=num_images_per_prompt,
-                vae_sample=vae_sample, output_type=output_type,
-                graph=person.is_cuda, num_steps=num_steps,
-                guidance_scale=guidance_scale,
+            denoise_kw = dict(
+                num_steps=num_steps, guidance_scale=guidance_scale,
                 guidance_rescale=guidance_rescale, strength=strength,
                 garment_cache=garment_cache, inpaint_blend=inpaint_blend,
                 init_noise=init_noise, step_noise=step_noise,
                 denoising_start=denoising_start,
                 denoising_end=denoising_end, latents_in=latents_in,
-                timesteps=timesteps, impl=impl,
-                callback=callback_on_step_end)
+                timesteps=timesteps, impl=impl)
+            with span("serve.request"):
+                with _phase("encode", phase_seconds, person.device):
+                    cond = encode(generator, inputs)
+                    image_latents = self._image_latents(
+                        generator, person, num_images_per_prompt,
+                        vae_sample, denoise_kw)
+                return self._finish(
+                    generator, cond, person, image_latents, phase_seconds,
+                    num_images_per_prompt=num_images_per_prompt,
+                    output_type=output_type, graph=person.is_cuda,
+                    callback=callback_on_step_end, **denoise_kw)
 
         return fn

@@ -55,6 +55,7 @@ from idmvton_tpu_torch.parallel import mesh as _mesh
 from idmvton_tpu_torch.parallel import zero as _zero
 from idmvton_tpu_torch.pipeline.tryon import TryonModels, encode_prompt_sdxl
 from idmvton_tpu_torch.train import quant_opt
+from idmvton_tpu_torch.utils.profiling import span
 
 TRAINABLE = ("unet", "resampler")
 
@@ -197,7 +198,9 @@ class Optimizer:
         # optax.clip_by_global_norm: g if |g| < max, else g / |g| * max
         norm = (global_norm(grads.values()) if parallel is None
                 else parallel.global_norm(grads))
-        if not bool(norm < self.max_grad_norm):
+        with span("train.wait"):      # the host reads the norm
+            small = bool(norm < self.max_grad_norm)
+        if not small:
             for g in grads.values():
                 g.div_(norm).mul_(self.max_grad_norm)
         if zero1 is not None:
@@ -347,7 +350,7 @@ def tryon_loss(trainable: dict, models: TryonModels,
         """This data rank's rows of a draw made for the global batch."""
         return t if data is None else t.narrow(dim, data.rank * b, b)
 
-    with torch.no_grad():
+    with torch.no_grad(), span("train.frozen"):
         # the frozen towers: no gradient reaches them
         masked = person * (mask < 0.5).to(cd)
         eps = None
@@ -385,21 +388,23 @@ def tryon_loss(trainable: dict, models: TryonModels,
         t = rows(torch.randint(0, scheduler.cfg.num_train_timesteps,
                                (b * n_data,), generator=generator,
                                device=dev))
-    t_host = t.cpu()       # the scheduler's tables index on the host
+    with span("train.wait"):
+        t_host = t.cpu()   # the scheduler's tables index on the host
     t = t.to(dev)
     noisy = scheduler.add_noise(model_input, noise.to(cd), t_host)
     unet_in = torch.cat([noisy, mask_lat, masked_lat, pose_lat], dim=-1)
 
-    with torch.no_grad():
+    with torch.no_grad(), span("train.garment"):
         # GarmentNet: the cond batch only, no CFG zeros (train_xl.py:707-8)
         _, feats = m.garm(cloth_lat, t, cloth_embeds, impl=impl)
 
     time_ids = torch.tensor([h, w, 0, 0, h, w], dtype=cd,
                             device=dev)[None].expand(b, 6)
-    pred, _ = functional_call(
-        m.unet, params["unet"], (unet_in, t, context),
-        dict(added_cond=(pooled, time_ids), garment_features=feats,
-             impl=impl, remat=remat))
+    with span("train.tryonnet"):
+        pred, _ = functional_call(
+            m.unet, params["unet"], (unet_in, t, context),
+            dict(added_cond=(pooled, time_ids), garment_features=feats,
+                 impl=impl, remat=remat))
 
     pt = scheduler.cfg.prediction_type
     if pt == "epsilon":
@@ -446,7 +451,14 @@ def make_train_step(models: TryonModels, scheduler: DDPMScheduler,
     rows (``shard_batch``) and ``generator`` is seeded alike on every
     rank; the gradients are averaged over the data group, the loss is the
     global mean, and a tensor-parallel TryonNet's shards and a ZeRO-1
-    state's slices are updated as ``parallel/`` sets them."""
+    state's slices are updated as ``parallel/`` sets them.
+
+    A step is the span ``train.step`` (``utils.profiling``) holding
+    ``train.forward`` (``tryon_loss``: ``train.frozen``, the no-grad VAE
+    and towers; ``train.wait``, the host read of the timesteps;
+    ``train.garment``; ``train.tryonnet``), ``train.backward`` and
+    ``train.optimizer`` (with the clip's host read of the norm,
+    ``train.wait``)."""
     par = None
     if mesh is not None:
         par = Parallel(_mesh.mesh_axis(mesh, _mesh.DATA_AXIS),
@@ -456,25 +468,31 @@ def make_train_step(models: TryonModels, scheduler: DDPMScheduler,
 
     def train_step(state: TrainState, batch: dict,
                    generator: Optional[torch.Generator] = None):
-        params = flat_params(state.trainable)
-        loss = tryon_loss(state.trainable, models, scheduler, batch,
-                          generator, snr_gamma=snr_gamma,
-                          compute_dtype=compute_dtype, impl=impl,
-                          remat=remat, vae_sample=vae_sample,
-                          data=None if par is None else par.data)
-        # a parameter the loss does not read gets a zero gradient, as in JAX
-        grads = {k: torch.zeros_like(p) if g is None else g
-                 for (k, p), g in zip(params.items(), torch.autograd.grad(
-                     loss, list(params.values()), allow_unused=True))}
-        loss = loss.detach()
-        if par is None:
-            gnorm = global_norm(grads.values())
-        else:
-            _mesh.all_reduce_mean_(list(grads.values()) + [loss], par.data)
-            gnorm = par.global_norm(grads)
-        tx.update_(grads, state.opt_state, params, parallel=par,
-                   zero1=state.zero1)
-        state.step += 1
-        return state, {"loss": loss, "grad_norm": gnorm}
+        with span("train.step"):
+            params = flat_params(state.trainable)
+            with span("train.forward"):
+                loss = tryon_loss(state.trainable, models, scheduler, batch,
+                                  generator, snr_gamma=snr_gamma,
+                                  compute_dtype=compute_dtype, impl=impl,
+                                  remat=remat, vae_sample=vae_sample,
+                                  data=None if par is None else par.data)
+            with span("train.backward"):
+                vjps = torch.autograd.grad(loss, list(params.values()),
+                                           allow_unused=True)
+                # a parameter the loss does not read gets a zero gradient,
+                # as in JAX
+                grads = {k: torch.zeros_like(p) if g is None else g
+                         for (k, p), g in zip(params.items(), vjps)}
+            loss = loss.detach()
+            if par is not None:
+                _mesh.all_reduce_mean_(list(grads.values()) + [loss],
+                                       par.data)
+            with span("train.optimizer"):
+                gnorm = (global_norm(grads.values()) if par is None
+                         else par.global_norm(grads))
+                tx.update_(grads, state.opt_state, params, parallel=par,
+                           zero1=state.zero1)
+            state.step += 1
+            return state, {"loss": loss, "grad_norm": gnorm}
 
     return train_step

@@ -32,8 +32,26 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "scripts"))
 
 import chip_smoke as smoke  # noqa: E402
-from torch_tiny_step_probe import profile_step  # noqa: E402
-from torch_train_profile import grouped, timed  # noqa: E402
+from torch_tiny_step_probe import GROUPS, grouped, profile_step  # noqa: E402
+
+# the training step's own kernel groups before the serving ones: cuDNN's
+# convolution backward, the plain attention's softmax backward
+TRAIN_GROUPS = (("cuDNN (conv backward)", ("cudnn", "dgrad", "wgrad",
+                                           "xmma", "conv2d")),
+                ("softmax backward", ("softmax",))) + GROUPS
+
+
+def mean_ms(fn, reps=3):
+    """Mean wall ms of ``reps`` calls after one warm-up, each ending in a
+    synchronize."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
 
 
 def main():
@@ -103,8 +121,8 @@ def main():
         return dict(zip(train, torch.autograd.grad(
             total, [params[k] for k in train])))
 
-    out = {"step_ms": timed(one), "forward_ms": timed(forward),
-           "forward_backward_ms": timed(forward_backward)}
+    out = {"step_ms": mean_ms(one), "forward_ms": mean_ms(forward),
+           "forward_backward_ms": mean_ms(forward_backward)}
     updates = []
     for _ in range(3):
         grads = forward_backward()
@@ -120,13 +138,13 @@ def main():
         prop = rcnn.clip_boxes(rcnn.apply_deltas(anchors, dl[0], (1.0,) * 4),
                                images.shape[1:3])
         rec = {}
-        out["nms_ms"] = timed(lambda: nms_topk(
+        out["nms_ms"] = mean_ms(lambda: nms_topk(
             prop, obj[0], iou_threshold=cfg.rpn_nms_thresh,
             topk=cfg.rpn_post_nms_topk, record=rec))
         out["nms_visited"] = rec["visited"]
     del anchors, obj, dl, prop
     prof = profile_step(one, out["step_ms"], label="dp_train", top_n=15)
-    prof["groups"] = grouped("dp_train")
+    prof["groups"] = grouped("dp_train", TRAIN_GROUPS)
     out["profile"] = prof
     smoke.log(f"dp train step {out['step_ms']:.1f} ms (forward "
               f"{out['forward_ms']:.1f}, forward + backward "

@@ -46,6 +46,29 @@ OUT = ROOT / "chiprun_out"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
+# kernel groups of a profiled step, by a substring of the kernel's name;
+# the first group that matches takes the kernel, and the rest is "other"
+GROUPS = (("ln_linear_i8 GEGLU", ("ln_linear_i8_kernel<true",
+                                  "ln_linear_i8_kernel<128, true",
+                                  "ln_linear_i8_kernel<256, true")),
+          ("ln_linear_i8", ("ln_linear_i8_kernel",)),
+          ("ln_linear_i8 quantization pre-pass", ("ln_quant_kernel",)),
+          ("ln_linear GEGLU", ("ln_linear_kernel<true",
+                               "ln_linear_kernel<128, true",
+                               "ln_linear_kernel<256, true")),
+          ("ln_linear", ("ln_linear_kernel",)),
+          ("ln_linear statistics pre-pass", ("ln_stats_kernel",)),
+          ("flash_attention_gemm", ("flash_gemm_kernel",)),
+          ("cross_attention_small_kv", ("cross_small_kernel",)),
+          ("conv3x3 / conv3x3_padacc (wgmma)", ("idm_conv::conv3x3_kernel",)),
+          ("gn_spatial_stats", ("gn_",)),
+          ("fused_layer_norm", ("layer_norm_kernel",)),
+          ("cuBLAS GEMMs (aten::mm, bmm)", ("nvjet", "gemm")),
+          ("copies (casts, cat, pad)", ("copy", "CatArray", "pad")),
+          ("elementwise", ("elementwise",)),
+          ("reductions", ("reduce",)))
+
+
 def busy_us(events):
     """The union of the device intervals' lengths, in microseconds."""
     total, end = 0.0, float("-inf")
@@ -92,6 +115,25 @@ def profile_step(step, wall_ms, label="tiny", top_n=8):
     for k, (ms, n) in top:
         smoke.log(f"  {ms:8.3f} ms {n:5d}x {k}")
     return res
+
+
+def grouped(label, groups=GROUPS):
+    """{group: (ms, calls)} of the kernels in ``profile_step``'s trace of
+    ``label``."""
+    trace = OUT / f"{label}_step_trace.json"
+    out = {}
+    for e in json.loads(trace.read_text())["traceEvents"]:
+        if e.get("ph") != "X" or e.get("cat") != "kernel":
+            continue
+        name = next((g for g, keys in groups
+                     if any(k in e["name"] for k in keys)), "other")
+        ms, n = out.get(name, (0.0, 0))
+        out[name] = (ms + e["dur"] / 1e3, n + 1)
+    total = sum(ms for ms, _ in out.values())
+    for name, (ms, n) in sorted(out.items(), key=lambda kv: -kv[1][0]):
+        smoke.log(f"  {label} {name}: {ms:.3f} ms ({100 * ms / total:.1f}%, "
+                  f"{n} kernels)")
+    return out
 
 
 def main():

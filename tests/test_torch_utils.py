@@ -1,9 +1,9 @@
 """The port's utilities (``idmvton_tpu_torch/utils``) against the JAX
 package's, on the CPU: SSIM, PSNR, LPIPS and ``convert_lpips`` on shared
 numpy inputs and JAX's parameter trees (fp32 both sides, within 1e-5);
-``PhaseTimer``'s accounting and ``trace``'s Chrome trace; the golden gate
-on a fixture directory made from a tiny port stack (JAX's
-``test_fixture_protocol_self_round_trip``)."""
+``PhaseTimer``'s accounting and ``trace``'s events, in memory and as a
+Chrome trace; the golden gate on a fixture directory made from a tiny port
+stack (JAX's ``test_fixture_protocol_self_round_trip``)."""
 
 import importlib.util
 import json
@@ -121,15 +121,28 @@ def test_phase_timer_accounting():
 
 
 def test_trace_writes_chrome_trace(tmp_path):
-    """``trace`` writes a Chrome trace holding ``annotate``'s range."""
+    """``trace`` given a directory writes a Chrome trace holding a span's
+    range."""
     with profiling.trace(str(tmp_path)):
-        with profiling.annotate("idmvton_phase"):
+        with profiling.span("idmvton_phase"):
             torch.ones(64, 64) @ torch.ones(64, 64)
     files = os.listdir(tmp_path)
     assert len(files) == 1 and files[0].endswith(".json")
     with open(tmp_path / files[0]) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "idmvton_phase" for e in events)
+
+
+def test_trace_keeps_events_in_memory(tmp_path, monkeypatch):
+    """Without a directory ``trace`` writes nothing; the span's range and
+    the op under it are in the profiler's events."""
+    monkeypatch.chdir(tmp_path)
+    with profiling.trace() as prof:
+        with profiling.span("idmvton_phase"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+    assert os.listdir(tmp_path) == []
+    names = {e.key for e in prof.key_averages()}
+    assert {"idmvton_phase", "aten::mm"} <= names
 
 
 def test_golden_gate_self_round_trip(tmp_path):
