@@ -104,9 +104,19 @@ failure:
    once more (no kernel in a backward; #9-#11 never), the forward before
    steps 2 and 3 held cuda against torch on the updated masters; seconds a
    step, img/s and peak memory beside the card's name and power limit;
-   (c) ``cli.train.main --micro`` on a synthetic VITON-HD tree: 2
+   then two adamw8bit steps through ``make_train_step`` (the benchmark's
+   optimizer), each launching the same kernels plus adamw8bit's norm and
+   update once (#12), the update walking every block of the tree
+   (``adamw8bit.fused_blocks``); (c) ``cli.train.main --micro`` on a synthetic VITON-HD tree: 2
    optimizer steps of 2 micro-batches, checkpoints, eval images, then a
-   resumed run to step 3;
+   resumed run to step 3; (d) adamw8bit's kernel (``ops/csrc/adam_int8.cu``)
+   on the full trainable tree (TryonNet + Resampler: 2.991 B fp32 masters
+   in 1,591 leaves, their gradients and 8-bit moments): one step against
+   the plain per-leaf update (``ADAM_TOLS``, at ``ADAM_LR`` and
+   ``ADAM_WD``), then the norm, the update and the whole optimizer phase
+   timed eagerly and in a CUDA graph beside the bound
+   (``adam_int8_bytes``) and the plain update's time, for the kernels
+   line;
 11. DensePose detection training (``preprocess/densepose/train.py``) at
    the served config, B = 2 at 800x1088 from a seed (3 persons an image,
    128 points, 56x56 masks): one step's losses and four leaves' gradients
@@ -131,9 +141,10 @@ failure:
    gloo with CUDA tensors where it refuses two ranks on one device): one
    full-width denoise step under TP=2 and under SP=2 against the
    single-process step (``PARALLEL_TOLS``) with each rank's launches
-   exact (``PARALLEL_STEP``), the micro stack's dp=2 step replicated and
-   with ZeRO-1 against one rank (``MICRO_TOL``, ZeRO-1's moments at most
-   half a rank), ViT-H in 2 pipeline stages x 2 microbatches equal to the
+   exact (``PARALLEL_STEP``), the micro stack's dp=2 adamw step
+   replicated and with ZeRO-1, and its adamw8bit step with ZeRO-1 (the
+   kernel on each rank's blocks), against one rank (``MICRO_TOL``, ZeRO-1's
+   moments at most half a rank), ViT-H in 2 pipeline stages x 2 microbatches equal to the
    sequential forward bit for bit; (c) LPIPS, SSIM and PSNR on phase 5's
    two images (LPIPS cuda against torch, ``LPIPS_CONV`` exact), a
    ``PhaseTimer`` and a ``trace`` around the cuda LPIPS call. One card
@@ -231,6 +242,8 @@ PATH_KERNELS = {
     # (GarmentNet's emit LayerNorm, the VAE encode's large levels), no
     # kernel in a backward
     "train": BF16_PATH,
+    # two adamw8bit steps of phase 10's stack: adamw8bit's norm and update
+    "train_adamw8bit": BF16_PATH + ("adam_int8_update", "adam_int8_norm"),
     # cli/train.py --micro at TRAIN_CLI_SIZE, two runs (train, resume)
     "train_cli": ("conv3x3", "gn_spatial_stats", "flash_attention"),
     # the fp32 preprocessing nets: the DensePose R-CNN's train steps, Face
@@ -1614,6 +1627,160 @@ TRAIN_TIMESTEP = 500
 # heads of 8) over 192 own + 192 garment keys #9 (GarmentNet's 192 keys
 # stay on the plain formula, as in JAX)
 TRAIN_CLI_SIZE = (192, 256)
+# adamw8bit steps after phase 10's adamw ones
+TRAIN8_STEPS = 2
+
+
+# adamw8bit's kernel against the plain per-leaf update after one step from
+# the same state: codes equal or one apart (a log10 rounding tie between two
+# fp32 paths), at least ``codes`` of them equal; each master within fp32
+# rounding of the plain one (2 ulp of |p|, and 1e-4 of lr) for at least
+# ``masters`` of the elements and within one code level's effect (15% of
+# lr) for all; the global norm within ``norm`` relative (fp64 partials
+# against fp32 sums). The decay term, lr * wd * |p| = 1e-4 |p|, is then
+# some 400 times the rounding allowed: a kernel that drops it or flips its
+# sign fails (at lr 1e-5 and wd 1e-2 it would be under one ulp of |p|)
+ADAM_TOLS = {"codes": 0.999, "masters": 0.999, "norm": 1e-5}
+ADAM_LR = 1e-3
+ADAM_WD = 0.1
+
+
+def adam_int8_bytes(sizes, nblocks_used: int) -> int:
+    """The least bytes one fused step moves: each gradient read twice (the
+    norm and the update), each master read and written, both int8 moment
+    codes read and written, and their fp32 block scales read and written."""
+    n = sum(sizes)
+    return 8 * n + 8 * n + 4 * n + 16 * nblocks_used
+
+
+def check_adam_int8(dev, card):
+    """Phase 10d: adamw8bit's kernel on the full trainable tree. Returns
+    the kernels line's entries of its two launches."""
+    import torch
+    from idmvton_tpu_torch.pipeline.tryon import TryonModels
+    from idmvton_tpu_torch.train import quant_opt
+    from idmvton_tpu_torch.train.train_step import (
+        flat_params, global_norm, make_optimizer,
+    )
+    meta = TryonModels.init(None, device="meta", dtype=torch.float32)
+    shapes = flat_params({c: dict(getattr(meta, c).named_parameters())
+                          for c in ("unet", "resampler")})
+    del meta
+    gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+    masters = {k: torch.randn(p.shape, generator=gen, device=dev) * 0.02
+               for k, p in shapes.items()}
+    grads = {k: torch.randn(p.shape, generator=gen, device=dev) * 1e-4
+             for k, p in shapes.items()}
+    sizes = [p.numel() for p in masters.values()]
+    tx = make_optimizer(learning_rate=ADAM_LR, weight_decay=ADAM_WD,
+                        optimizer="adamw8bit")
+    state = tx.init(masters)
+    tx.update_(grads, state, masters)          # moments away from zero
+    torch.cuda.synchronize()
+    table = tx._table
+    log(f"adam_int8: {len(sizes)} leaves, {sum(sizes) / 1e9:.3f} B "
+        f"parameters, {table.used} blocks, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident")
+
+    # one step, kernel against the plain update on copies of the state
+    p_masters = {k: p.clone() for k, p in masters.items()}
+    p_state = {k: v.clone() if torch.is_tensor(v) else v
+               for k, v in state.items()}
+    norm = tx.global_norm(grads, masters)
+    want_norm = global_norm(grads.values())
+    norm_rel = abs(float(norm) - float(want_norm)) / float(want_norm)
+    before = (quant_opt.fused_global_norm.launches,
+              quant_opt.adamw_int8_fused_.launches)
+    tx.update_(grads, state, masters, norm=norm)
+    launched = (quant_opt.fused_global_norm.launches - before[0],
+                quant_opt.adamw_int8_fused_.launches - before[1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if not bool(want_norm < tx.max_grad_norm):
+        for g in grads.values():
+            g.div_(want_norm).mul_(tx.max_grad_norm)
+    tx._adamw8bit(grads, p_state, p_masters)
+    for k, p in p_masters.items():
+        p.add_(grads[k])
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    equal = worst_code = 0
+    rows = 1 << 20                   # 256 MiB of codes at a time
+    for m in ("mu", "nu"):
+        for i in range(0, state[f"{m}_q"].shape[0], rows):
+            d = (state[f"{m}_q"][i:i + rows].short()
+                 - p_state[f"{m}_q"][i:i + rows].short()).abs()
+            worst_code = max(worst_code, int(d.max()))
+            equal += int((d == 0).sum())
+    codes_equal = equal / (2 * state["mu_q"].numel())
+    close = worst = 0.0
+    for k, p in masters.items():
+        err = (p - p_masters[k]).abs()
+        tol = p_masters[k].abs() * 2.0 ** -22 + 1e-4 * ADAM_LR
+        close += int((err <= tol).sum())
+        worst = max(worst, float(err.max()))
+    masters_close = close / sum(sizes)
+    log(f"adam_int8: kernel vs plain after one step: codes equal "
+        f"{codes_equal:.6f} (max |diff| {worst_code}), masters within "
+        f"rounding {masters_close:.6f} (max |diff| {worst:.3e}, lr "
+        f"{ADAM_LR:g}, wd {ADAM_WD:g}), norm rel {norm_rel:.2e}; launches "
+        f"norm / update {launched}")
+    if (worst_code > 1 or codes_equal < ADAM_TOLS["codes"]
+            or masters_close < ADAM_TOLS["masters"]
+            or worst > 0.15 * ADAM_LR or norm_rel > ADAM_TOLS["norm"]
+            or launched != (0, 1)):
+        fail("adam_int8: the kernel departs from the plain update")
+    del p_masters, p_state
+    grads = {k: torch.randn(p.shape, generator=gen, device=dev) * 1e-4
+             for k, p in masters.items()}
+    torch.cuda.empty_cache()
+
+    # times: the norm, the update (clip on), the whole optimizer phase
+    plain_norm_ms = cuda_time_ms(lambda: global_norm(grads.values()))
+    norm = quant_opt.fused_global_norm(table, grads)
+    hp = dict(b1=tx.b1, b2=tx.b2, eps=tx.eps, weight_decay=tx.wd, lr=tx.lr,
+              clip=norm, max_norm=tx.max_grad_norm)
+    update = lambda: quant_opt.adamw_int8_fused_(table, grads, masters,
+                                                 state, **hp)
+    norm_fn = lambda: quant_opt.fused_global_norm(table, grads)
+    bound_ms = adam_int8_bytes(sizes, table.used) / 3.35e12 * 1e3
+    norm_bound_ms = 4 * sum(sizes) / 3.35e12 * 1e3
+    res = {"norm_ms": cuda_time_ms(norm_fn), "update_ms": cuda_time_ms(update),
+           "norm_graph_ms": graph_ms(norm_fn), "update_graph_ms":
+           graph_ms(update)}
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tx.update_(grads, state, masters, norm=tx.global_norm(grads,
+                                                               masters))
+        host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    res.update(bound_ms=bound_ms, norm_bound_ms=norm_bound_ms,
+               plain_ms=plain_s * 1e3, phase_host_ms=min(host) * 1e3,
+               roofline=bound_ms / (res["norm_graph_ms"]
+                                    + res["update_graph_ms"]))
+    log(f"adam_int8 ({card}): " + json.dumps(
+        {k: round(v, 4) for k, v in res.items()}))
+    del masters, grads, state, tx, table
+    torch.cuda.empty_cache()
+    entry = {"route": "cuda", "source": "idmvton_tpu_torch/ops/csrc/"
+             "adam_int8.cu", "replaces": "idmvton_tpu/train/quant_opt.py:117 "
+             "(one XLA program, no Pallas kernel)", "bound_by": "bytes",
+             "library_ms": None, "library": None, "library_graph_ms": None,
+             "shapes": 1}
+    return {
+        "adam_int8_update": dict(
+            entry, name="adam_int8_update", max_abs_err=worst,
+            max_rel_err=worst / ADAM_LR, tol_rel=0.15, ms=res["update_ms"],
+            plain_ms=res["plain_ms"], bound_ms=bound_ms,
+            graph_ms=res["update_graph_ms"]),
+        "adam_int8_norm": dict(
+            entry, name="adam_int8_norm",
+            max_abs_err=norm_rel * float(want_norm), max_rel_err=norm_rel,
+            tol_rel=ADAM_TOLS["norm"], ms=res["norm_ms"],
+            plain_ms=plain_norm_ms, bound_ms=norm_bound_ms,
+            graph_ms=res["norm_graph_ms"])}
 
 
 def check_kernel_grads(dev):
@@ -1792,16 +1959,21 @@ def check_train(wrappers, dev, card):
     TRAIN_STEPS adamw steps through ``make_train_step`` on the card, each
     finite, moving the parameters and launching exactly the forward's
     kernels plus the rematerialized blocks' again, with the forward before
-    steps 2 and 3 held cuda against torch on the updated masters. Returns
-    the steps' launch counts."""
+    steps 2 and 3 held cuda against torch on the updated masters. Then
+    TRAIN8_STEPS adamw8bit steps through ``make_train_step``, each finite,
+    moving the masters, launching the adamw steps' kernels and adamw8bit's
+    norm and update once, and counting every block of the tree in
+    ``adamw8bit.fused_blocks``. Returns the launch counts of both paths."""
     import gc
     import torch
     from idmvton_tpu_torch.core.config import SchedulerConfig
     from idmvton_tpu_torch.diffusion.scheduler import DDPMScheduler
     from idmvton_tpu_torch.pipeline.tryon import TryonModels
+    from idmvton_tpu_torch.train.quant_opt import BLOCK
     from idmvton_tpu_torch.train.train_step import (
         flat_params, init_train_state, make_optimizer, make_train_step,
     )
+    from idmvton_tpu_torch.utils.profiling import counters
     t0 = time.perf_counter()
     models = TryonModels.init(SEED, device=dev, dtype=torch.bfloat16)
     for i, module in enumerate(models.components().values()):
@@ -1874,10 +2046,50 @@ def check_train(wrappers, dev, card):
         f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"reserved {torch.cuda.max_memory_reserved() / 2**30:.2f} GiB "
         f"(adamw, the serving TryonNet's bf16 copy kept)")
+
+    # the benchmark's optimizer through the same step
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    tx = make_optimizer(optimizer="adamw8bit")
+    state = init_train_state(models, tx)
+    step = make_train_step(models, sched, tx, impl="cuda", vae_sample=False)
+    tree_blocks = sum(-(-p.numel() // BLOCK)
+                      for p in flat_params(state.trainable).values())
+    exact8 = dict(exact, adam_int8_update=1, adam_int8_norm=1)
+    counts8 = dict.fromkeys(wrappers, 0)
+    for i in range(TRAIN8_STEPS):
+        before = flat_params(state.trainable)[watch].detach().clone()
+        walked = counters().get("adamw8bit.fused_blocks", 0)
+        for w in wrappers.values():
+            w.launches = 0
+        t1 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        walked = counters().get("adamw8bit.fused_blocks", 0) - walked
+        step_counts = {k: w.launches for k, w in wrappers.items()}
+        moved = float((flat_params(state.trainable)[watch].detach()
+                       - before).abs().max())
+        log(f"train adamw8bit step {i + 1}: {secs:.3f} s, loss {loss:.6g}, "
+            f"grad norm {gnorm:.6g}, {watch} moved by {moved:.3e}; blocks "
+            f"updated {walked} of {tree_blocks}; launches {step_counts}")
+        if not (math.isfinite(loss) and math.isfinite(gnorm) and moved > 0):
+            fail(f"train adamw8bit step {i + 1}: loss {loss}, grad norm "
+                 f"{gnorm}, moved {moved}")
+        if step_counts != exact8 or walked != tree_blocks:
+            fail(f"train adamw8bit step {i + 1}: launches {step_counts}, "
+                 f"expected {exact8}; blocks {walked} of {tree_blocks}")
+        for k, n in step_counts.items():
+            counts8[k] += n
+    for k, w in wrappers.items():
+        w.launches = counts8[k]
+    counts8 = gate_launches(wrappers, "train_adamw8bit")
     del models, state, step, batch
     gc.collect()
     torch.cuda.empty_cache()
-    return counts
+    return {"train": counts, "train_adamw8bit": counts8}
 
 
 def write_viton_tree(root, phase, n, size):
@@ -2495,9 +2707,10 @@ def check_two_ranks(dev, card):
     refuses two ranks on one device the ranks take gloo with CUDA tensors.
     Gates the full-width TP=2 and SP=2 denoise steps against the
     single-process one (PARALLEL_TOLS) and each rank's launches
-    (PARALLEL_STEP), the micro dp=2 step, replicated and ZeRO-1, against
-    the one-rank step here (MICRO_TOL; ZeRO-1's moments at most half a
-    rank), and ViT-H's GPipe run bit for bit. Returns each parallel
+    (PARALLEL_STEP), the micro dp=2 step, adamw replicated and ZeRO-1 and
+    adamw8bit ZeRO-1 (its kernel once a rank), against the one-rank step
+    here (MICRO_TOL; ZeRO-1's moments at most half a rank), and ViT-H's
+    GPipe run bit for bit. Returns each parallel
     step's launches summed over the ranks."""
     import torch
     from torch.multiprocessing import (
@@ -2552,13 +2765,21 @@ def check_two_ranks(dev, card):
                 fail(f"rank {rank} {mode}: max rel {mx}, mean rel {mean}")
     from idmvton_tpu_torch.parallel.onecard import _host, micro_step
     one = _host(*micro_step(dev, SEED + 50))
+    one8 = dict(_host(*micro_step(dev, SEED + 50, optimizer="adamw8bit")),
+                mu=one["mu"])
     for rank, r in enumerate(ranks):
         t = r["train"]
         for mode in ("replicated", "zero1"):
             _micro_close(f"rank {rank} micro dp=2 {mode}", t[mode], one)
-        if not t["zero1"]["moment_bytes"] <= 0.5 * one["moment_bytes"]:
-            fail(f"rank {rank}: ZeRO-1 holds {t['zero1']['moment_bytes']} "
-                 f"moment bytes, one rank {one['moment_bytes']}")
+        _micro_close(f"rank {rank} micro dp=2 zero1 adamw8bit",
+                     t["zero1_adamw8bit"], one8)
+        for mode, want in (("zero1", one), ("zero1_adamw8bit", one8)):
+            if not t[mode]["moment_bytes"] <= 0.5 * want["moment_bytes"]:
+                fail(f"rank {rank}: {mode} holds {t[mode]['moment_bytes']} "
+                     f"moment bytes, one rank {want['moment_bytes']}")
+        if t["zero1_adamw8bit"]["launches"] != 1:
+            fail(f"rank {rank}: adamw8bit's kernel launched "
+                 f"{t['zero1_adamw8bit']['launches']} times, not once")
         p = r["pipeline"]
         log(f"rank {rank} GPipe ViT-H ({p['layers']} layers x "
             f"{p['hidden']}, 2 stages x 2 microbatches, activations hopping "
@@ -2664,7 +2885,10 @@ def main():
     log(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s")
 
     from idmvton_tpu_torch.parallel.onecard import kernel_wrappers
+    from idmvton_tpu_torch.train import quant_opt
     wrappers = kernel_wrappers()
+    wrappers.update(adam_int8_update=quant_opt.adamw_int8_fused_,
+                    adam_int8_norm=quant_opt.fused_global_norm)
     from idmvton_tpu_torch.cli import infer
 
     with torch.inference_mode():
@@ -2758,8 +2982,9 @@ def main():
 
     # -- phase 10: training (autograd, outside inference mode) ---------------
     backward = check_kernel_grads(dev)
-    counts["train"] = check_train(wrappers, dev, card)
+    counts.update(check_train(wrappers, dev, card))
     counts["train_cli"] = check_train_cli(wrappers)
+    results.update(check_adam_int8(dev, card))
 
     # -- phases 11-13: DensePose training, Face / Hand, evaluation ---------
     counts["densepose_train"] = check_dp_train(wrappers, dev, card)
@@ -2775,7 +3000,7 @@ def main():
 
     kernels = []
     for name in wrappers:
-        by_path = {path: c[name] for path, c in counts.items()}
+        by_path = {path: c.get(name, 0) for path, c in counts.items()}
         kernels.append(dict(results[name], launches=sum(by_path.values()),
                             launches_by_path=by_path,
                             backward=backward.get(name)))

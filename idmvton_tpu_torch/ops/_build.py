@@ -24,7 +24,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("ln_linear.cu", "ln_linear_i8.cu", "gn_stats.cu", "conv3x3.cu",
            "conv3x3_padacc.cu", "flash_attention_gemm.cu",
-           "cross_attention_small_kv.cu", "flash_attention.cu")
+           "cross_attention_small_kv.cu", "flash_attention.cu",
+           "adam_int8.cu")
 HEADERS = ("common.cuh", "conv3x3.cuh", "flash_attention.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -63,6 +64,14 @@ SIGNATURES = {
     # q, k, v, garment k, v, out, B, Sq, Skv, M, H, D, scale, then the plan
     "idm_flash_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _F, _P, _P],
+    # leaf table, gradient addresses, leaves, covered blocks, partial
+    # scratch and its capacity, out (the norm)
+    "idm_adam_int8_norm": [_P, _P, _I, _I, _P, _I, _P, _P],
+    # leaf table, gradient addresses, leaves, mu_q, mu_s, nu_q, nu_s, norm,
+    # clip, max_norm, b1, 1 - b1, b2, 1 - b2, bc1, bc2, eps, wd, -lr,
+    # exp2 span, span, then the block range lo, hi
+    "idm_adam_int8_update": [_P, _P, _I, _P, _P, _P, _P, _P, _I] + [_F] * 12
+    + [_I, _I, _P],
 }
 
 # -D flags of the library that ``lib()`` builds and binds: none for the

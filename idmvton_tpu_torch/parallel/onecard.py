@@ -16,7 +16,8 @@ kernels the code routes them to; it cannot show scaling.
   (``impl="cuda"``), then under SP=2 (the rows gathered), then under TP=2;
   each parallel step's launches are counted alone.
 - ``train_ranks``: a micro-stack train step at dp=2, replicated and with
-  ZeRO-1 (adamw).
+  ZeRO-1 (adamw), and with ZeRO-1 under adamw8bit (the kernel on each
+  rank's block range on the card).
 - ``pipeline_ranks``: ViT-H (32 layers, full width, bf16) in 2 stages x 2
   microbatches against the sequential forward over the same microbatches.
 """
@@ -195,17 +196,27 @@ def denoise_ranks(rank, world, seed: int, device="cuda", tiny=False,
 
 
 def train_ranks(rank, world, seed: int, device="cuda", tiny=False) -> dict:
-    """One micro-stack adamw step at dp=``world`` (global batch 2 at
-    32x32, the draws from one seed), replicated and with ZeRO-1: each
-    one's loss, gradient norm, updated masters (host copies) and the
-    moment bytes this rank holds."""
+    """One micro-stack step at dp=``world`` (global batch 2 at 32x32, the
+    draws from one seed): adamw replicated and with ZeRO-1, and adamw8bit
+    with ZeRO-1. Each one's loss, gradient norm, updated masters (host
+    copies) and the moment bytes this rank holds; adamw8bit's also the
+    block range of its state and the kernel's launches."""
     from idmvton_tpu_torch.parallel.mesh import make_mesh
+    from idmvton_tpu_torch.train import quant_opt
     del tiny    # the micro stack either way
     mesh = make_mesh()
     dev = torch.device(device)
     out = {}
-    for name, zero1 in (("replicated", False), ("zero1", True)):
-        out[name] = _host(*micro_step(dev, seed, mesh, zero1))
+    for name, zero1, opt in (("replicated", False, "adamw"),
+                             ("zero1", True, "adamw"),
+                             ("zero1_adamw8bit", True, "adamw8bit")):
+        launches = quant_opt.adamw_int8_fused_.launches
+        state, metrics = micro_step(dev, seed, mesh, zero1, opt)
+        out[name] = _host(state, metrics)
+        if opt == "adamw8bit":
+            out[name]["blocks"] = state.zero1.blocks
+            out[name]["launches"] = (quant_opt.adamw_int8_fused_.launches
+                                     - launches)
     return out
 
 
@@ -227,9 +238,11 @@ def all_ranks(rank, world, seed: int, device="cuda", tiny=False) -> dict:
     return out
 
 
-def micro_step(dev, seed: int, mesh=None, zero1: bool = False):
-    """The micro stack (random biases and norm affines), one adamw step on
-    the global batch of 2 (this data rank's rows under ``mesh``)."""
+def micro_step(dev, seed: int, mesh=None, zero1: bool = False,
+               optimizer: str = "adamw"):
+    """The micro stack (random biases and norm affines), one ``optimizer``
+    step on the global batch of 2 (this data rank's rows under
+    ``mesh``)."""
     from idmvton_tpu_torch.core.config import SchedulerConfig
     from idmvton_tpu_torch.diffusion.scheduler import DDPMScheduler
     from idmvton_tpu_torch.parallel.dryrun import tiny_batch
@@ -243,7 +256,7 @@ def micro_step(dev, seed: int, mesh=None, zero1: bool = False):
                               dtype=torch.float32)
     for i, m in enumerate(models.components().values()):
         random_affine_(m, seed + 10 + i)
-    tx = make_optimizer()
+    tx = make_optimizer(optimizer=optimizer)
     state = init_train_state(models, tx)
     if zero1:
         state = zero1_state_sharding(state, mesh)
@@ -275,7 +288,7 @@ def _host(state, metrics) -> dict:
             "params": {k: v.detach().cpu().numpy()
                        for k, v in flat_params(state.trainable).items()},
             "mu": {k: v.cpu().numpy() for k, v in
-                   state.opt_state["mu"].items()},
+                   state.opt_state.get("mu", {}).items()},
             "moment_bytes": sum(t.numel() * t.element_size()
                                 for t in leaves)}
 

@@ -103,10 +103,13 @@ def zero1_state_sharding(state, mesh):
 
 
 @torch.no_grad()
-def update_(tx, grads, state: dict, params, z: Zero1) -> None:
-    """The optimizer's inner update (after the clip) on this rank's slices,
-    then the updated masters all-gathered: ``params`` hold the whole
-    update on every rank. ``state`` is the inner state."""
+def update_(tx, grads, state: dict, params, z: Zero1, table=None,
+            clip=None) -> None:
+    """The optimizer's inner update on this rank's slices, then the updated
+    masters all-gathered: ``params`` hold the whole update on every rank.
+    ``state`` is the inner state. ``table``: adamw8bit's leaf table where
+    its kernel runs (the card), which clips by the global norm ``clip``
+    (None: no clip) as it reads ``grads``; else ``grads`` come clipped."""
     if tx.kind == "adamw":
         g_loc = {k: z.local(k, g) for k, g in grads.items()}
         p_loc = {k: z.local(k, p) for k, p in params.items()}
@@ -119,11 +122,14 @@ def update_(tx, grads, state: dict, params, z: Zero1) -> None:
     if tx.kind == "adamw8bit" and z.blocks is not None:
         from idmvton_tpu_torch.train.quant_opt import BLOCK, layout
         from idmvton_tpu_torch.train import quant_opt
-        quant_opt.adam_int8_(grads, state, b1=tx.b1, b2=tx.b2, eps=tx.eps,
-                             blocks=z.blocks)
-        for k, g in grads.items():
-            g.copy_((g + tx.wd * params[k]) * -tx.lr)
-            params[k].add_(g)
+        if table is not None:
+            tx._adamw8bit_fused_(table, grads, state, params, clip, z.blocks)
+        else:
+            quant_opt.adam_int8_(grads, state, b1=tx.b1, b2=tx.b2,
+                                 eps=tx.eps, blocks=z.blocks)
+            for k, g in grads.items():
+                g.copy_((g + tx.wd * params[k]) * -tx.lr)
+                params[k].add_(g)
         # this rank's blocks of the updated masters, in block space
         lo, hi = z.blocks
         offs, _ = layout([p.shape for p in params.values()])
@@ -139,6 +145,9 @@ def update_(tx, grads, state: dict, params, z: Zero1) -> None:
         whole = _all_gather(mine, z.axis, 0)
         for p, start, n in spans:
             p.view(-1).copy_(whole[start:start + n])
+        return
+    if table is not None:            # the kernel over the replicated state
+        tx._adamw8bit_fused_(table, grads, state, params, clip)
         return
     getattr(tx, f"_{tx.kind}")(grads, state, params)   # replicated state
     for k, p in params.items():

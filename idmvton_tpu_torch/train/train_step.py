@@ -123,9 +123,13 @@ class Optimizer:
     """``make_optimizer``'s transformation: optax.chain(clip_by_global_norm,
     inner) (optax ``_src/clipping.py``), wrapped as optax.MultiSteps for
     ``accum_steps > 1``. ``init(params)`` gives the state; ``update_(grads,
-    state, params)`` consumes ``grads`` (they become the updates), updates
-    ``state`` and ``params`` in place and returns whether the parameters
-    moved (False mid-accumulation)."""
+    state, params)`` updates ``state`` and ``params`` in place and returns
+    whether the parameters moved (False mid-accumulation).
+
+    adamw8bit on the card runs one kernel a step over every leaf
+    (``quant_opt.adamw_int8_fused_``, its leaf table made once a parameter
+    set and kept here); on the CPU, and for the other kinds, the plain
+    per-leaf update."""
 
     def __init__(self, kind: str, learning_rate: float, weight_decay: float,
                  b1: float, b2: float, eps: float, max_grad_norm: float,
@@ -137,6 +141,7 @@ class Optimizer:
         self.b1, self.b2, self.eps = b1, b2, eps
         self.max_grad_norm = max_grad_norm
         self.accum_steps = accum_steps
+        self._table = None    # quant_opt.LeafTable of the last masters
 
     def _inner_init(self, params):
         if self.kind == "adamw8bit":
@@ -166,16 +171,47 @@ class Optimizer:
                 "acc": {k: torch.zeros_like(p) for k, p in params.items()},
                 "inner": inner}
 
+    def _fused(self, params) -> Optional[quant_opt.LeafTable]:
+        """adamw8bit on the card: the kernel's leaf table of ``params``,
+        made again only for other masters; None where the plain update
+        runs."""
+        if self.kind != "adamw8bit" or not next(iter(params.values())).is_cuda:
+            return None
+        if self._table is None or (self._table.key
+                                   != quant_opt.LeafTable.key_of(params)):
+            self._table = None       # the old table's buffers go first
+            self._table = quant_opt.LeafTable(params)
+        return self._table
+
+    @torch.no_grad()
+    def global_norm(self, grads: Dict[str, torch.Tensor],
+                    params: Dict[str, torch.Tensor],
+                    parallel: Optional[Parallel] = None) -> torch.Tensor:
+        """The global norm of ``grads`` (0-dim fp32): over tensor-parallel
+        shards ``parallel.global_norm``; adamw8bit on the card the kernel's
+        multi-tensor sum of squares; else ``global_norm``."""
+        if parallel is not None and parallel.sharded:
+            return parallel.global_norm(grads)
+        table = self._fused(params)
+        if table is not None:
+            return quant_opt.fused_global_norm(table, grads)
+        return global_norm(grads.values())
+
     @torch.no_grad()
     def update_(self, grads: Dict[str, torch.Tensor], state: dict,
                 params: Dict[str, torch.Tensor], *,
                 parallel: Optional[Parallel] = None,
-                zero1: Optional[_zero.Zero1] = None) -> bool:
+                zero1: Optional[_zero.Zero1] = None,
+                norm: Optional[torch.Tensor] = None) -> bool:
         """``parallel``: the clip norm over tensor-parallel shards;
-        ``zero1``: ``state`` holds this rank's slices of the moments."""
+        ``zero1``: ``state`` holds this rank's slices of the moments;
+        ``norm``: ``global_norm(grads, params, parallel)`` where the caller
+        has it (``train_step``'s ``grad_norm``), else computed here. The
+        plain update turns ``grads`` into the updates in place; adamw8bit's
+        kernel only reads them, and no caller reads them afterwards."""
         ctx = (parallel, zero1)
         if self.accum_steps <= 1:
-            self._step(grads, state, params, *ctx)
+            self._step(grads, state, params, *ctx, norm=norm)
             return True
         # optax.MultiSteps: a running mean of the micro-gradients, acc + (g
         # - acc) / (n + 1); the clip and the inner update once, at the
@@ -194,17 +230,23 @@ class Optimizer:
         state["gradient_step"] += 1
         return True
 
-    def _step(self, grads, state, params, parallel=None, zero1=None):
+    def _step(self, grads, state, params, parallel=None, zero1=None,
+              norm=None):
         # optax.clip_by_global_norm: g if |g| < max, else g / |g| * max
-        norm = (global_norm(grads.values()) if parallel is None
-                else parallel.global_norm(grads))
+        if norm is None:
+            norm = self.global_norm(grads, params, parallel)
         with span("train.wait"):      # the host reads the norm
             small = bool(norm < self.max_grad_norm)
-        if not small:
+        clip = None if small else norm
+        table = self._fused(params)   # adamw8bit's kernel clips as it reads
+        if table is None and clip is not None:
             for g in grads.values():
                 g.div_(norm).mul_(self.max_grad_norm)
         if zero1 is not None:
-            _zero.update_(self, grads, state, params, zero1)
+            _zero.update_(self, grads, state, params, zero1, table, clip)
+            return
+        if table is not None:
+            self._adamw8bit_fused_(table, grads, state, params, clip)
             return
         getattr(self, f"_{self.kind}")(grads, state, params)
         for k, p in params.items():
@@ -216,9 +258,7 @@ class Optimizer:
         ``_src/transform.py``)."""
         b1, b2, eps = self.b1, self.b2, self.eps
         count = state["count"] + 1
-        one = np.float32(1.0)
-        bc1 = float(one - np.float32(b1) ** np.float32(count))
-        bc2 = float(one - np.float32(b2) ** np.float32(count))
+        bc1, bc2 = quant_opt.bias_corrections(b1, b2, count)
         for k, g in grads.items():
             mu, nu = state["mu"][k], state["nu"][k]
             mu.copy_((1 - b1) * g + b1 * mu)
@@ -234,6 +274,17 @@ class Optimizer:
                              eps=self.eps)
         for k, g in grads.items():
             g.copy_((g + self.wd * params[k]) * -self.lr)
+
+    def _adamw8bit_fused_(self, table, grads, state, params, clip,
+                          blocks=None):
+        """``_adamw8bit`` and optax.apply_updates as one launch of
+        adamw8bit's kernel over ``table``'s leaves: ``grads`` are only read,
+        clipped by the global norm ``clip`` (None: not clipped); ``blocks``:
+        the block range ZeRO-1 gives this rank's state."""
+        quant_opt.adamw_int8_fused_(
+            table, grads, params, state, b1=self.b1, b2=self.b2,
+            eps=self.eps, weight_decay=self.wd, lr=self.lr, clip=clip,
+            max_norm=self.max_grad_norm, blocks=blocks)
 
     def _adafactor(self, grads, state, params):
         """optax.adafactor(learning_rate) with its defaults:
@@ -488,10 +539,9 @@ def make_train_step(models: TryonModels, scheduler: DDPMScheduler,
                 _mesh.all_reduce_mean_(list(grads.values()) + [loss],
                                        par.data)
             with span("train.optimizer"):
-                gnorm = (global_norm(grads.values()) if par is None
-                         else par.global_norm(grads))
+                gnorm = tx.global_norm(grads, params, par)
                 tx.update_(grads, state.opt_state, params, parallel=par,
-                           zero1=state.zero1)
+                           zero1=state.zero1, norm=gnorm)
             state.step += 1
             return state, {"loss": loss, "grad_norm": gnorm}
 

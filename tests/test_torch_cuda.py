@@ -1493,6 +1493,160 @@ def test_inference_on_dataset_on_the_card(dev):
 
 
 # ---------------------------------------------------------------------------
+# adamw8bit's fused update (train/quant_opt.py, csrc/adam_int8.cu) against
+# the plain per-leaf update on the CPU
+# ---------------------------------------------------------------------------
+
+# leaves whose sizes are not a multiple of the 256-element blocks (2880,
+# 12480, 35), one element, exactly 256, and one of 160 blocks (12-171) that
+# a two-rank ZeRO-1 split (112 blocks a rank) cuts in two; 224 blocks
+ADAM_SHAPES = {"conv": (3, 3, 16, 20), "linear": (160, 256), "one": (1,),
+               "bias": (256,), "thin": (96, 130), "odd": (5, 7)}
+ADAM_LR = 1e-3
+
+
+def _adam_tree(seed, scale, dev):
+    g = torch.Generator().manual_seed(seed)
+    return {k: (torch.randn(s, generator=g) * scale).to(dev)
+            for k, s in ADAM_SHAPES.items()}
+
+
+def _gradients(step, norm, dev):
+    """Gradients of global norm ``norm``; ``linear``'s a transposed view
+    (not contiguous: the wrapper reads a contiguous copy)."""
+    gs = _adam_tree(100 + step, 1.0, "cpu")
+    gs["linear"] = gs["linear"].t().contiguous().t()
+    total = float(torch.sqrt(sum(g.square().sum() for g in gs.values())))
+    return {k: (g * (norm / total)).to(dev) for k, g in gs.items()}
+
+
+def _assert_moments_close(got: dict, want: dict):
+    """Codes equal or one apart (a log10 rounding tie between the card's
+    and the CPU's libraries; a moment one level apart then stays apart by
+    about a level), 99.9% equal; scales within fp32 rounding for 99% of the
+    blocks and within a level (13%) for all."""
+    for m in ("mu", "nu"):
+        q = got[f"{m}_q"].cpu().short()
+        wq = want[f"{m}_q"].short()
+        assert (q - wq).abs().max() <= 1, m
+        assert (q == wq).float().mean() >= 0.999, m
+        sc, wsc = got[f"{m}_scale"].cpu(), want[f"{m}_scale"]
+        rel = ((sc - wsc).abs() / wsc).flatten()
+        assert (rel <= 1e-6).float().mean() >= 0.99 and rel.max() <= 0.13, m
+
+
+def _assert_masters_close(got: dict, want: dict, steps: int, masks=None):
+    """Within fp32 rounding of the update (1e-6 of the leaf's scale) for
+    99.9% of the elements, and within the effect of one code level (15% of
+    the learning rate a step) for all."""
+    close = total = 0
+    for k, w in want.items():
+        err = (got[k].cpu() - w).abs().flatten()
+        if masks is not None:
+            err = err[masks[k]]
+        if err.numel():
+            assert float(err.max()) <= 0.15 * ADAM_LR * steps, k
+        close += int((err <= 1e-6 * float(w.abs().max())).sum())
+        total += err.numel()
+    assert close >= 0.999 * total, (close, total)
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+@pytest.mark.parametrize("norm", [2.7, 0.4], ids=["clip", "no_clip"])
+def test_adamw8bit_kernel_matches_plain(dev, accum, norm):
+    """Three adamw8bit steps (of ``accum`` micro-steps each) through
+    ``Optimizer.update_`` on the card, where the kernel runs, against the
+    same steps on the CPU, where the plain update runs: the clip active
+    (gradient norm 2.7 over the limit 1) and not (0.4). The global norm the
+    kernel's sum of squares gives equals ``global_norm``'s within fp32
+    rounding; each step launches the norm and the update once and counts
+    every covered block in ``adamw8bit.fused_blocks``; the gradients are
+    left as they were."""
+    from idmvton_tpu_torch.train import quant_opt
+    from idmvton_tpu_torch.train.train_step import global_norm, make_optimizer
+    from idmvton_tpu_torch.utils.profiling import counters
+    params = _adam_tree(0, 0.1, dev)
+    plain = {k: p.cpu() for k, p in params.items()}
+    kw = dict(learning_rate=ADAM_LR, optimizer="adamw8bit",
+              accum_steps=accum)
+    tx, tx_plain = make_optimizer(**kw), make_optimizer(**kw)
+    state, state_plain = tx.init(params), tx_plain.init(plain)
+    for i in range(3 * accum):
+        grads = _gradients(i, norm, dev)
+        kept = {k: g.clone() for k, g in grads.items()}
+        got_norm = tx.global_norm(grads, params)
+        want_norm = global_norm([g.cpu() for g in grads.values()])
+        assert abs(float(got_norm) - float(want_norm)) <= 1e-6 * float(
+            want_norm)
+        before = (quant_opt.fused_global_norm.launches,
+                  quant_opt.adamw_int8_fused_.launches,
+                  counters().get("adamw8bit.fused_blocks", 0))
+        moved = tx.update_(grads, state, params)
+        torch.cuda.synchronize()
+        assert moved == tx_plain.update_({k: g.cpu() for k, g in
+                                          kept.items()}, state_plain, plain)
+        n = int(moved)
+        assert (quant_opt.fused_global_norm.launches - before[0],
+                quant_opt.adamw_int8_fused_.launches - before[1],
+                counters().get("adamw8bit.fused_blocks", 0) - before[2]
+                ) == (n, n, 224 * n)
+        assert all(torch.equal(grads[k], kept[k]) for k in grads)
+    inner = state if accum == 1 else state["inner"]
+    inner_plain = state_plain if accum == 1 else state_plain["inner"]
+    assert inner["count"] == inner_plain["count"] == 3
+    _assert_moments_close(inner, inner_plain)
+    _assert_masters_close(params, plain, 3)
+
+
+def test_adamw8bit_kernel_zero1_cut_matches_plain(dev):
+    """ZeRO-1's split of the 224 blocks over two ranks, each rank's range
+    through the kernel (``blocks=(lo, hi)``, the state holding only those
+    blocks), against the plain ``adam_int8_`` on the same range on the CPU
+    (then the decay, the learning rate and the master add), three steps
+    with the clip active: the range's moments alike, and the masters alike
+    inside the range and untouched outside it. The ``linear`` leaf (blocks
+    12-171) lies across the cut."""
+    from idmvton_tpu_torch.train import quant_opt
+    from idmvton_tpu_torch.train.train_step import global_norm
+    hp = dict(b1=0.9, b2=0.999, eps=1e-8)
+    offs, nblocks = quant_opt.layout(ADAM_SHAPES.values())
+    assert nblocks == 224
+    for lo, hi in ((0, 112), (112, 224)):
+        params = _adam_tree(0, 0.1, dev)
+        start = {k: p.cpu() for k, p in params.items()}
+        plain = {k: p.clone() for k, p in start.items()}
+        whole = quant_opt.init_state(plain)
+        state_plain = {k: v if k == "count" else v[lo:hi].clone()
+                       for k, v in whole.items()}
+        state = {k: v if k == "count" else v.to(dev)
+                 for k, v in state_plain.items()}
+        table = quant_opt.LeafTable(params)
+        for i in range(3):
+            grads = _gradients(i, 2.7, dev)
+            norm = quant_opt.fused_global_norm(table, grads)
+            quant_opt.adamw_int8_fused_(
+                table, grads, params, state, **hp, weight_decay=1e-2,
+                lr=ADAM_LR, clip=norm, max_norm=1.0, blocks=(lo, hi))
+            g_cpu = {k: g.cpu() for k, g in grads.items()}
+            n_cpu = global_norm(g_cpu.values())
+            for g in g_cpu.values():
+                g.div_(n_cpu).mul_(1.0)
+            quant_opt.adam_int8_(g_cpu, state_plain, **hp, blocks=(lo, hi))
+            for k, g in g_cpu.items():
+                plain[k].add_((g + 1e-2 * plain[k]) * -ADAM_LR)
+        torch.cuda.synchronize()
+        masks = {}
+        for (k, p), o in zip(start.items(), offs):
+            e = torch.arange(p.numel()) // quant_opt.BLOCK + o
+            masks[k] = (e >= lo) & (e < hi)
+            assert torch.equal(params[k].cpu().flatten()[~masks[k]],
+                               p.flatten()[~masks[k]]), k
+        assert state["count"] == state_plain["count"] == 3
+        _assert_moments_close(state, state_plain)
+        _assert_masters_close(params, plain, 3, masks)
+
+
+# ---------------------------------------------------------------------------
 # two ranks sharing the card (parallel/onecard.py): gloo with CUDA tensors
 # (NCCL refuses two ranks on one device)
 # ---------------------------------------------------------------------------
@@ -1526,19 +1680,44 @@ def test_two_ranks_zero1_micro_step_matches_one_rank(dev, two_ranks):
     1e-5 where the gradient is above 1e-3 of its leaf's largest (else
     within 3e-5: a first Adam step may flip there); ZeRO-1 holds at most
     half the moments a rank."""
-    import numpy as np
     from idmvton_tpu_torch.parallel.onecard import _host, micro_step
     torch.backends.cudnn.allow_tf32 = False
     one = _host(*micro_step(dev, 7))
     for r in two_ranks:
         for mode in ("replicated", "zero1"):
-            got = r["train"][mode]
-            assert abs(got["loss"] - one["loss"]) <= 1e-5 * abs(one["loss"])
-            for k, w in one["params"].items():
-                err = np.abs(got["params"][k] - w)
-                tiny = np.abs(one["mu"][k]) < 1e-3 * np.abs(one["mu"][k]).max()
-                assert (err[~tiny] <= 1e-5).all() and (err[tiny] <= 3e-5).all()
+            _assert_micro_close(r["train"][mode], one, one["mu"])
         assert r["train"]["zero1"]["moment_bytes"] <= 0.5 * one["moment_bytes"]
+
+
+def _assert_micro_close(got, one, mu):
+    """A dp=2 micro step against one rank's: the loss within 1e-5
+    relative, the masters within 1e-5 where the gradient (adamw's first
+    moment ``mu``) is above 1e-3 of its leaf's largest, else within 3e-5."""
+    import numpy as np
+    assert abs(got["loss"] - one["loss"]) <= 1e-5 * abs(one["loss"])
+    for k, w in one["params"].items():
+        err = np.abs(got["params"][k] - w)
+        tiny = np.abs(mu[k]) < 1e-3 * np.abs(mu[k]).max()
+        assert (err[~tiny] <= 1e-5).all() and (err[tiny] <= 3e-5).all(), k
+
+
+def test_two_ranks_zero1_adamw8bit_step_matches_one_rank(dev, two_ranks):
+    """The micro stack's dp=2 adamw8bit step with ZeRO-1 (each rank's half
+    of the 1,344 blocks through the kernel inside ``Optimizer.update_``,
+    then the masters' block all-gather) against one rank's adamw8bit step
+    on the card, the kernel over every block: as close as the adamw case
+    (the first step's direction comes from the unquantized moments); one
+    launch a rank, and each rank's state half the blocks."""
+    from idmvton_tpu_torch.parallel.onecard import _host, micro_step
+    torch.backends.cudnn.allow_tf32 = False
+    mu = _host(*micro_step(dev, 7))["mu"]
+    one = _host(*micro_step(dev, 7, optimizer="adamw8bit"))
+    for rank, r in enumerate(two_ranks):
+        got = r["train"]["zero1_adamw8bit"]
+        _assert_micro_close(got, one, mu)
+        assert got["blocks"] == (672 * rank, 672 * (rank + 1))
+        assert got["launches"] == 1
+        assert got["moment_bytes"] <= 0.5 * one["moment_bytes"]
 
 
 def test_two_ranks_gpipe_is_bit_exact(two_ranks):

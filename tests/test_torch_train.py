@@ -50,6 +50,7 @@ from idmvton_tpu_torch.ops import cuda_norm as N
 from idmvton_tpu_torch.ops.quant import quantize_kernel_int8
 from idmvton_tpu_torch.pipeline.tryon import TryonModels
 from idmvton_tpu_torch.train import quant_opt
+from idmvton_tpu_torch.train import train_step as train_step_mod
 from idmvton_tpu_torch.train.train_step import (
     flat_params, init_train_state, make_optimizer, make_train_step,
     tryon_loss,
@@ -211,7 +212,7 @@ def test_loss_and_grads_match_jax(stacks, jax_runs, case):
 
 
 @pytest.mark.parametrize("optimizer", OPTIMIZERS)
-def test_train_step_matches_jax(stacks, jax_runs, optimizer):
+def test_train_step_matches_jax(stacks, jax_runs, optimizer, monkeypatch):
     """One ``make_train_step`` step (epsilon, lr 1e-3) against JAX's
     ``train_step``: ``value_and_grad``, then ``tx.update`` and
     ``optax.apply_updates``. The loss within 1e-5 and the gradient norm
@@ -228,15 +229,21 @@ def test_train_step_matches_jax(stacks, jax_runs, optimizer):
     state: the step count, and the int8 moment codes of every leaf's
     blocks equal or one apart for 99% of them (a log10 rounding tie, or a
     moment near zero whose gradient entry differs). Each optimizer's
-    arithmetic is held to optax's on the same gradients below."""
+    arithmetic is held to optax's on the same gradients below. The step
+    computes the global norm once: its ``grad_norm`` is the clip's norm."""
     jm, tm, tree = stacks
     tx = make_optimizer(learning_rate=LR, optimizer=optimizer)
     state = init_train_state(tm, tx)
     step = make_train_step(tm, DDPMScheduler(SchedulerConfig.train()), tx,
                            compute_dtype=torch.float32, remat=False,
                            vae_sample=False)
+    norms = []
+    plain_norm = train_step_mod.global_norm
+    monkeypatch.setattr(train_step_mod, "global_norm",
+                        lambda ts: norms.append(plain_norm(ts)) or norms[-1])
     state, metrics = step(state, _torch_batch(_batch()))
     assert state.step == 1
+    assert len(norms) == 1 and metrics["grad_norm"] is norms[0]
     (want_params, want_state), want_norm = (jax_runs[1][optimizer],
                                             jax_runs[2])
     np.testing.assert_allclose(float(metrics["loss"]),
@@ -326,9 +333,15 @@ def test_optimizer_matches_optax(optimizer, accum):
                         accum_steps=accum)
     tp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
     state = tx.init(tp)
+    launches = (quant_opt.fused_global_norm.launches,
+                quant_opt.adamw_int8_fused_.launches)
     moved = [tx.update_({k: torch.from_numpy(v.copy()) for k, v in
                          g.items()}, state, tp) for g in grads[:steps]]
     assert moved == [(i + 1) % accum == 0 for i in range(steps)]
+    # the CPU takes the plain update: no kernel, no leaf table
+    assert (quant_opt.fused_global_norm.launches,
+            quant_opt.adamw_int8_fused_.launches) == launches
+    assert tx._table is None
     for k, w in want.items():
         w = np.asarray(w)
         atol = (0.15 * LR if optimizer == "adamw8bit"
@@ -353,6 +366,62 @@ def test_optimizer_matches_optax(optimizer, accum):
                 want_k = want_codes[j_off[k]:j_off[k] + nb]
                 assert np.abs(got_k - want_k).max() <= 1, (which, k)
                 assert (got_k == want_k).mean() >= 0.999, (which, k)
+
+
+@pytest.mark.parametrize("ranks", [1, 2, 4, 8])
+def test_leaf_table_matches_layout(ranks):
+    """The fused update's leaf table against ``layout``: the leaves' first
+    blocks, then the blocks they cover (every leaf's blocks, the buffer's
+    padding to a multiple of 8 left out), their sizes and their masters'
+    addresses. Split over ``ranks`` as ZeRO-1 splits the buffer (one block
+    range a rank; 2 ranks cut the conv leaf in two, 8 leave the last rank
+    padding only), the kernel walks each covered block once over all ranks,
+    and the leaf its binary search finds for a block (the last whose first
+    block is not after it) holds the block, elements included."""
+    params = {k: torch.from_numpy(v) for k, v in _opt_tree(0).items()}
+    table = quant_opt.LeafTable(params)
+    offs, nblocks = quant_opt.layout([p.shape for p in params.values()])
+    sizes = [p.numel() for p in params.values()]
+    nb = [-(-n // quant_opt.BLOCK) for n in sizes]
+    assert (table.first, table.nblocks, table.sizes) == (offs, nblocks, sizes)
+    assert table.used == sum(nb) == 932 and nblocks == 936
+    assert table.static.tolist() == (offs + [table.used] + sizes
+                                     + [p.data_ptr() for p in
+                                        params.values()])
+    assert table.key == quant_opt.LeafTable.key_of(params)
+    per = nblocks // ranks
+    walked = []
+    for r in range(ranks):
+        lo, end = table.span((r * per, (r + 1) * per))
+        assert lo == r * per and end == min((r + 1) * per, table.used)
+        walked += range(lo, end)
+    assert walked == list(range(table.used))
+    first = np.array(offs + [table.used])
+    if ranks == 2:      # the conv leaf (blocks 0-719) spans both ranks
+        assert table.span((0, per))[1] == per < nb[0]
+    for b in walked:
+        i = int(np.searchsorted(first, b, side="right")) - 1
+        assert offs[i] <= b < offs[i] + nb[i]
+        assert (b - offs[i]) * quant_opt.BLOCK < sizes[i]
+    assert table.span() == (0, table.used)
+
+
+def test_leaf_table_refuses_what_the_kernel_cannot_read():
+    """fp32 contiguous masters only; gradients of the masters' sizes in
+    fp32 on their device."""
+    params = {k: torch.from_numpy(v) for k, v in _opt_tree(0).items()}
+    with pytest.raises(ValueError, match="masters"):
+        quant_opt.LeafTable(dict(params, bias=params["bias"].double()))
+    with pytest.raises(ValueError, match="masters"):
+        quant_opt.LeafTable(dict(params, linear=params["linear"].t()))
+    table = quant_opt.LeafTable(params)
+    grads = {k: torch.zeros_like(p) for k, p in params.items()}
+    with pytest.raises(ValueError, match="fp32"):
+        table.load(dict(grads, odd=grads["odd"].bfloat16()))
+    with pytest.raises(ValueError, match="35 fp32"):
+        table.load(dict(grads, odd=grads["odd"][:3]))
+    with pytest.raises(ValueError, match="gradients for"):
+        table.load(dict(list(grads.items())[:-1]))
 
 
 def test_int8_quantization_matches_jax():
