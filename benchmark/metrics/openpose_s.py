@@ -1,0 +1,9 @@
+"""Mean seconds of a demo request's ``demo.openpose``, the stage's span,
+over the traced run's requests that were not profiled."""
+
+from benchmark.harness import spans
+
+
+def read(cell, res):
+    return spans.mean_of(res, "demo.request",
+                         lambda s: spans.seconds(s, "demo.openpose"))

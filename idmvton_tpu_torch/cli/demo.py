@@ -12,9 +12,11 @@ templates, CFG 2.0 at 768x1024. The same flags, plus ``--device``:
 
 It runs on the card (``--device cuda``, the default) unless asked for the
 CPU: the try-on stack, the three preprocessing nets (fp32, seeded random
-weights, as JAX's) and the try-on through ``TryonPipeline.jit_generate``,
-whose denoise steps replay one captured CUDA graph on the card (JAX's
-non-TPU branch). ``TryonService.tryon`` is the PIL boundary (decode,
+weights, as JAX's) and the try-on. On the card the try-on is
+``TryonPipeline.stepwise_generate`` (JAX's accelerator branch: the batched
+tower calls, then every denoise step replayed from one captured CUDA
+graph); on the CPU ``jit_generate`` (JAX's other branch), run eagerly.
+``TryonService.tryon`` is the PIL boundary (decode,
 convert, crop, resize, paste); ``TryonService.tryon_arrays`` the array
 core, uint8 arrays in and out.
 """
@@ -241,11 +243,18 @@ class TryonService:
         return out
 
     def _gen(self, steps: int):
-        """The try-on program of ``steps`` steps: ``jit_generate`` (JAX's
-        non-TPU branch), which replays the captured step on the card."""
+        """The try-on program of ``steps`` steps, JAX's choice: on the
+        accelerator ``stepwise_generate`` (the three prompts in one pass of
+        each text tower and both IP images in one vision pass, then the
+        replayed steps), elsewhere ``jit_generate``. The same math and the
+        same draws in the same order; the batched passes launch a third of
+        the text towers' kernels and half of the vision tower's, launches
+        the card would otherwise wait on."""
         if steps not in self._gens:
-            self._gens[steps] = self.pipe.jit_generate(num_steps=steps,
-                                                       guidance_scale=2.0)
+            make = (self.pipe.stepwise_generate
+                    if self.device.type == "cuda"
+                    else self.pipe.jit_generate)
+            self._gens[steps] = make(num_steps=steps, guidance_scale=2.0)
         return self._gens[steps]
 
     @staticmethod
@@ -271,41 +280,44 @@ class TryonService:
         ``tryon_arrays``; then the crop pasted back. ``stage_seconds``, when
         given, receives each stage's seconds (crop, openpose, parsing,
         mask, densepose, tryon), each stage ending in a device synchronize.
-        A stage is the span ``demo.<stage>`` (``utils.profiling``)."""
+        A request is the span ``demo.request`` (``utils.profiling``), each
+        of its stages the span ``demo.<stage>``."""
         from PIL import Image
 
         from idmvton_tpu_torch.data.image import clip_preprocess
 
-        with self._stage("crop", stage_seconds):
-            person = person.convert("RGB")
-            garment = garment.convert("RGB")
-            crop_box = None
-            original = person
-            if auto_crop:
-                person, crop_box = self.auto_crop_3_4(person)
-            w, h = self.size
-            person_resized = np.asarray(person.resize((w, h), Image.BICUBIC))
-            small = manual = None
-            if auto_mask or mask_image is None:
-                small = np.asarray(person.resize((384, 512)))
-            else:
-                # hand-drawn layer: any non-black pixel is mask (the
-                # reference's pil_to_binary_mask, threshold 0)
-                manual = np.asarray(mask_image.convert("RGB").resize((w, h))
-                                    .convert("L")) > 0
-            cloth = np.asarray(garment.resize((w, h), Image.BICUBIC))
-            ip = clip_preprocess(garment)
-        out, mask_gray = self.tryon_arrays(
-            person_resized, cloth, ip, desc, small=small, mask=manual,
-            steps=steps, seed=seed, stage_seconds=stage_seconds)
-        out, mask_gray = Image.fromarray(out), Image.fromarray(mask_gray)
-        if crop_box is not None:
-            out = out.resize((crop_box[2] - crop_box[0],
-                              crop_box[3] - crop_box[1]))
-            full = original.copy()
-            full.paste(out, (crop_box[0], crop_box[1]))
-            return full, mask_gray
-        return out, mask_gray
+        with profiling.span("demo.request"):
+            with self._stage("crop", stage_seconds):
+                person = person.convert("RGB")
+                garment = garment.convert("RGB")
+                crop_box = None
+                original = person
+                if auto_crop:
+                    person, crop_box = self.auto_crop_3_4(person)
+                w, h = self.size
+                person_resized = np.asarray(person.resize((w, h),
+                                                          Image.BICUBIC))
+                small = manual = None
+                if auto_mask or mask_image is None:
+                    small = np.asarray(person.resize((384, 512)))
+                else:
+                    # hand-drawn layer: any non-black pixel is mask (the
+                    # reference's pil_to_binary_mask, threshold 0)
+                    manual = np.asarray(mask_image.convert("RGB").resize(
+                        (w, h)).convert("L")) > 0
+                cloth = np.asarray(garment.resize((w, h), Image.BICUBIC))
+                ip = clip_preprocess(garment)
+            out, mask_gray = self.tryon_arrays(
+                person_resized, cloth, ip, desc, small=small, mask=manual,
+                steps=steps, seed=seed, stage_seconds=stage_seconds)
+            out, mask_gray = Image.fromarray(out), Image.fromarray(mask_gray)
+            if crop_box is not None:
+                out = out.resize((crop_box[2] - crop_box[0],
+                                  crop_box[3] - crop_box[1]))
+                full = original.copy()
+                full.paste(out, (crop_box[0], crop_box[1]))
+                return full, mask_gray
+            return out, mask_gray
 
     def _stage(self, name: str, stage_seconds):
         """The span ``demo.<name>``; with a ``stage_seconds`` dict it ends
@@ -354,7 +366,8 @@ class TryonService:
                     keypoints = self.openpose(small)
                 with self._stage("parsing", stage_seconds):
                     parse = self.parsing.labels(small)
-                with self._stage("mask", stage_seconds):
+                with self._stage("mask", stage_seconds), \
+                        profiling.span("mask.build"):
                     mask = load_mask(
                         Image.fromarray(_mask_of(keypoints, parse)), (w, h))
             with self._stage("densepose", stage_seconds):

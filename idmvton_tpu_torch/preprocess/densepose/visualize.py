@@ -18,6 +18,7 @@ import torch
 from idmvton_tpu_torch.preprocess.densepose.rcnn import (
     DensePoseConfig, DensePoseRCNN, init_densepose_rcnn,
 )
+from idmvton_tpu_torch.utils.profiling import count, span
 
 PIXEL_MEAN_BGR = np.asarray([103.530, 116.280, 123.675], np.float32)
 
@@ -91,15 +92,20 @@ def _xyxy_to_xywh_clipped(box, h, w):
 def _paint_masked_colormap(image_rgb, boxes, valid, matrices, segms, *,
                            inplace, alpha, val_scale):
     """Shared loop: gray image -> per-detection MatrixVisualizer painting
-    (DensePoseResultsVisualizer.visualize loop, densepose_results.py:14-33)."""
+    (DensePoseResultsVisualizer.visualize loop, densepose_results.py:14-33).
+    With ``inplace=False`` each detection's painting starts by zeroing the
+    whole image (the visualizer's quirk), so the image the loop returns is
+    the last valid detection's alone: only that one is painted, to the same
+    bits, whatever the number of detections."""
     import cv2
     out = cv2.cvtColor(cv2.cvtColor(image_rgb, cv2.COLOR_RGB2GRAY),
                        cv2.COLOR_GRAY2BGR)
     vis = MatrixVisualizer(inplace=inplace, alpha=alpha, val_scale=val_scale)
     h, w = out.shape[:2]
-    for k in range(len(boxes)):
-        if not valid[k]:
-            continue
+    painted = [k for k in range(len(boxes)) if valid[k]]
+    if not inplace:
+        painted = painted[-1:]
+    for k in painted:
         bbox_xywh = _xyxy_to_xywh_clipped(boxes[k], h, w)
         out = vis.visualize(out, segms[k].astype(np.uint8),
                             matrices[k].astype(np.uint8), bbox_xywh)
@@ -407,9 +413,16 @@ class DensePose:
         }
 
     def __call__(self, image_rgb: np.ndarray) -> np.ndarray:
-        out = self._outputs(image_rgb)
-        return paint_segmentation(image_rgb, out["boxes"], out["labels"],
-                                  out["valid"])
+        """The dp_segm image. The resize in, the R-CNN and the host's read
+        of its outputs are the span ``densepose.net``, the painting
+        ``densepose.paint``; the counter ``densepose.detections`` adds the
+        detections kept after NMS (of ``cfg.num_detections`` slots)."""
+        with span("densepose.net"):
+            out = self._outputs(image_rgb)
+        count("densepose.detections", int(out["valid"].sum()))
+        with span("densepose.paint"):
+            return paint_segmentation(image_rgb, out["boxes"], out["labels"],
+                                      out["valid"])
 
     def show(self, image_rgb: np.ndarray, visualizations=("dp_segm",)):
         """ShowAction with a list of visualizer specs: each spec paints its

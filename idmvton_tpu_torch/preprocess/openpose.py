@@ -11,14 +11,16 @@ The CNN runs NHWC on its device; its 3x3 convs with at least 128 channels
 (``conv2_2``, ``conv3_*``, ``conv4_*``, ``conv5_{1,2,3}_CPM_*``) take the
 conv kernels on the card through ``layers.conv2d``, as JAX sends them to
 its Pallas conv. The x8 bilinear upsampling of the maps runs there too.
-The input resize (OpenCV cubic), the resize back to the image (OpenCV
-linear) and the decode (a handful of peaks) are host numpy / scipy / OpenCV,
-as in JAX.
+The input resize (OpenCV cubic) and the resize back to the image (OpenCV
+linear) are host OpenCV, as in JAX. The peaks are found on the net's
+device (``find_peaks``: scipy's Gaussian in float64, the same rounding, so
+JAX's peaks to the bit), and the PAF matching on the host scores a limb's
+candidate pairs in one array pass (``_pair_scores``), where JAX loops over
+them in Python; both keep JAX's bits.
 """
 
 from __future__ import annotations
 
-import math
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -27,6 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from idmvton_tpu_torch.models.layers import Conv, conv2d
+from idmvton_tpu_torch.utils.profiling import span
 
 # (name, in, out, kernel) per block; pools follow conv1_2, conv2_2, conv3_4
 _TRUNK = [
@@ -157,62 +160,116 @@ _PAF_IDX = [
 ]
 
 
-def find_peaks(heatmap: np.ndarray, *, threshold: float = 0.1,
-               sigma: float = 3.0) -> List[List[Tuple[int, int, float, int]]]:
-    """heatmap (H, W, 19). Returns per-part peak lists of
-    (x, y, score, global_id)."""
-    from scipy.ndimage import gaussian_filter
-    all_peaks = []
-    peak_counter = 0
-    for part in range(18):
-        m = gaussian_filter(heatmap[:, :, part], sigma=sigma)
-        up = np.zeros_like(m); up[1:, :] = m[:-1, :]
-        down = np.zeros_like(m); down[:-1, :] = m[1:, :]
-        left = np.zeros_like(m); left[:, 1:] = m[:, :-1]
-        right = np.zeros_like(m); right[:, :-1] = m[:, 1:]
-        is_peak = ((m >= up) & (m >= down) & (m >= left) & (m >= right)
-                   & (m > threshold))
-        ys, xs = np.nonzero(is_peak)
-        peaks = [(int(x), int(y), float(heatmap[y, x, part]), peak_counter + i)
-                 for i, (y, x) in enumerate(zip(ys, xs))]
-        peak_counter += len(peaks)
-        all_peaks.append(peaks)
+def _gaussian_smooth(x: torch.Tensor, sigma: float) -> torch.Tensor:
+    """``scipy.ndimage.gaussian_filter(x[..., c], sigma)`` of each channel of
+    x (H, W, C) fp32, to the bit, on x's device: the same float64 weights
+    (radius int(4 sigma + 0.5)), the same reflected edges, each axis in
+    float64 in scipy's order (the centre tap, then the outermost pair in
+    first) and rounded to fp32 between the axes."""
+    r = int(4.0 * float(sigma) + 0.5)
+    k = np.arange(-r, r + 1)
+    phi = np.exp(-0.5 / (sigma * sigma) * k ** 2)
+    w = (phi / phi.sum())[::-1].tolist()
+    for axis in (0, 1):
+        n = x.shape[axis]
+        xd = x.double()
+        pad = torch.cat([xd.narrow(axis, 0, r).flip(axis), xd,
+                         xd.narrow(axis, n - r, r).flip(axis)], axis)
+        out = pad.narrow(axis, r, n) * w[r]
+        for j in range(-r, 0):
+            out = out + (pad.narrow(axis, r + j, n)
+                         + pad.narrow(axis, r - j, n)) * w[r + j]
+        x = out.float()
+    return x
+
+
+def find_peaks(heatmap, *, threshold: float = 0.1, sigma: float = 3.0
+               ) -> List[List[Tuple[int, int, float, int]]]:
+    """heatmap (H, W, 19) fp32, a tensor (computed on its device) or an
+    array (on the CPU). Returns per-part peak lists of (x, y, score,
+    global_id), those of the reference's per-part scipy loop (body.py) to
+    the bit: the 18 parts smoothed at once (``_gaussian_smooth``), the same
+    four-neighbour comparisons against zero edges, the peaks in the same
+    row-major order; one read of the peaks to the host."""
+    heat = torch.as_tensor(heatmap)[..., :18]
+    m = _gaussian_smooth(heat, sigma).permute(2, 0, 1)      # (18, H, W)
+    up = F.pad(m[:, :-1], (0, 0, 1, 0))
+    down = F.pad(m[:, 1:], (0, 0, 0, 1))
+    left = F.pad(m[:, :, :-1], (1, 0))
+    right = F.pad(m[:, :, 1:], (0, 1))
+    is_peak = ((m >= up) & (m >= down) & (m >= left) & (m >= right)
+               & (m > threshold))
+    idx = torch.nonzero(is_peak)                            # (P, 3)
+    scores = heat[idx[:, 1], idx[:, 2], idx[:, 0]]
+    parts, ys, xs = idx.cpu().numpy().T.tolist() if len(idx) else ([],) * 3
+    vals = scores.cpu().tolist()
+    all_peaks = [[] for _ in range(18)]
+    for i, (part, y, x, v) in enumerate(zip(parts, ys, xs, vals)):
+        all_peaks[part].append((x, y, v, i))
     return all_peaks
+
+
+def _pair_scores(paf, channels, cand_a, cand_b, *, img_h: int,
+                 n_integral: int, score_thr: float):
+    """The PAF line integral of every (a, b) candidate pair at once, each
+    number computed as the reference's per-pair loop computes it (the same
+    float32 / float64 operations in the same order, so the same bits), on
+    the limb's two ``channels`` of ``paf`` (H, W, 38), read at the
+    sampled points only. Returns [(i, j, mean_score, mean_score + score_a
+    + score_b)] of the pairs that pass, in (i, j) order."""
+    ax, ay, sa = (np.asarray([p[k] for p in cand_a]) for k in (0, 1, 2))
+    bx, by, sb = (np.asarray([p[k] for p in cand_b]) for k in (0, 1, 2))
+    dx = (bx[None, :] - ax[:, None]).astype(np.float32)      # (A, B)
+    dy = (by[None, :] - ay[:, None]).astype(np.float32)
+    # float32 squares and their sum are exact for pixel offsets
+    norm = np.maximum(np.sqrt((dx * dx + dy * dy).astype(np.float64)),
+                      1e-8)
+    n32 = norm.astype(np.float32)
+    v = np.stack([dx / n32, dy / n32], -1)                  # (A, B, 2)
+    k = np.arange(n_integral, dtype=np.float64)
+
+    def line(a, b):     # np.linspace(a, b, n_integral), per pair
+        a = np.broadcast_to(a, dx.shape).astype(np.float64)
+        b = np.broadcast_to(b, dx.shape).astype(np.float64)
+        out = k * ((b - a) / (n_integral - 1))[..., None] + a[..., None]
+        out[..., -1] = b
+        return out
+
+    xs = line(ax[:, None], bx[None, :])
+    ys = line(ay[:, None], by[None, :])
+    iy = np.round(ys).astype(int).clip(0, paf.shape[0] - 1)
+    ix = np.round(xs).astype(int).clip(0, paf.shape[1] - 1)
+    samples = paf[iy[..., None], ix[..., None],
+                  np.asarray(channels)]                     # (A, B, n, 2)
+    line_scores = np.matmul(samples, v[..., None])[..., 0]  # (A, B, n)
+    prior = np.minimum(0.5 * img_h / norm - 1, 0.0)
+    mean = line_scores.mean(axis=-1).astype(np.float64) + prior
+    ok = (((line_scores > score_thr).sum(-1) > 0.8 * n_integral)
+          & (mean > 0))
+    ii, jj = np.nonzero(ok)
+    m = mean[ii, jj]
+    return list(zip(ii.tolist(), jj.tolist(), m.tolist(),
+                    (m + sa[ii] + sb[jj]).tolist()))
 
 
 def match_limbs(paf: np.ndarray, all_peaks, *, img_h: int,
                 n_integral: int = 10, score_thr: float = 0.05):
     """PAF line-integral scoring + greedy bipartite matching per limb
-    (reference body.py:77-139). Returns (connections per limb)."""
+    (reference body.py:77-139; the pairs of a limb scored at once,
+    ``_pair_scores``). Returns (connections per limb)."""
     connections = []
     for limb_i, (pa, pb) in enumerate(_LIMB_SEQ):
         ca, cb = _PAF_IDX[limb_i]
         # mapIdx values are historical concat indices; PAF channel = idx - 19
         # (reference body.py score_mid indexing)
-        score_map = paf[:, :, [ca - 19, cb - 19]]
         cand_a = all_peaks[pa - 1]
         cand_b = all_peaks[pb - 1]
         if not cand_a or not cand_b:
             connections.append([])
             continue
-        scored = []
-        for i, a in enumerate(cand_a):
-            for j, b in enumerate(cand_b):
-                vec = np.asarray([b[0] - a[0], b[1] - a[1]], np.float32)
-                norm = max(math.sqrt(float(vec @ vec)), 1e-8)
-                v = vec / norm
-                xs = np.linspace(a[0], b[0], n_integral)
-                ys = np.linspace(a[1], b[1], n_integral)
-                samples = score_map[np.round(ys).astype(int).clip(0, paf.shape[0] - 1),
-                                    np.round(xs).astype(int).clip(0, paf.shape[1] - 1)]
-                line_scores = samples @ v
-                prior = min(0.5 * img_h / norm - 1, 0.0)
-                mean_score = float(line_scores.mean()) + prior
-                ok = ((line_scores > score_thr).sum() > 0.8 * n_integral
-                      and mean_score > 0)
-                if ok:
-                    scored.append((i, j, mean_score,
-                                   mean_score + a[2] + b[2]))
+        scored = _pair_scores(paf, (ca - 19, cb - 19), cand_a, cand_b,
+                              img_h=img_h, n_integral=n_integral,
+                              score_thr=score_thr)
         scored.sort(key=lambda t: t[2], reverse=True)
         used_a, used_b, conn = set(), set(), []
         for i, j, s, st in scored:
@@ -331,20 +388,29 @@ class OpenPose:
 
     def heatmaps(self, image_bgr: np.ndarray):
         """image_bgr (H, W, 3) uint8. Multi-scale averaged (paf, heatmap) at
-        image resolution."""
+        image resolution. Each scale's input and CNN, up to the host's read
+        of its maps, is the span ``openpose.net``; the resize back and the
+        average are ``openpose.decode``, as is ``__call__``'s decode."""
         import cv2
         h, w = image_bgr.shape[:2]
-        heat_avg = np.zeros((h, w, _N_HEAT), np.float32)
-        paf_avg = np.zeros((h, w, _N_PAF), np.float32)
+        n = len(self.scales)
+        if n > 1:
+            heat_avg = np.zeros((h, w, _N_HEAT), np.float32)
+            paf_avg = np.zeros((h, w, _N_PAF), np.float32)
         for scale in self.scales:
-            x, (ph, pw) = self.prepare(image_bgr, scale)
-            paf, heat = self.maps(x)
-            ih, iw = x.shape[1:3]
-            paf = cv2.resize(paf[:ih - ph or None, :iw - pw or None], (w, h))
-            heat = cv2.resize(heat[:ih - ph or None, :iw - pw or None],
-                              (w, h))
-            paf_avg += paf / len(self.scales)
-            heat_avg += heat / len(self.scales)
+            with span("openpose.net"):
+                x, (ph, pw) = self.prepare(image_bgr, scale)
+                paf, heat = self.maps(x)
+            with span("openpose.decode"):
+                ih, iw = x.shape[1:3]
+                paf = cv2.resize(paf[:ih - ph or None, :iw - pw or None],
+                                 (w, h))
+                heat = cv2.resize(heat[:ih - ph or None, :iw - pw or None],
+                                  (w, h))
+                if n == 1:      # the average of one map is the map
+                    return paf, heat
+                paf_avg += paf / n
+                heat_avg += heat / n
         return paf_avg, heat_avg
 
     def __call__(self, image_rgb: np.ndarray) -> dict:
@@ -353,16 +419,19 @@ class OpenPose:
         h, w = image_rgb.shape[:2]
         image_bgr = image_rgb[:, :, ::-1]
         paf, heat = self.heatmaps(image_bgr)
-        peaks = find_peaks(heat)
-        conns = match_limbs(paf, peaks, img_h=h)
-        subset, candidate = assemble_people(peaks, conns)
-        kps = -np.ones((18, 2), np.float32)
-        if len(subset):
-            best = subset[np.argmax(subset[:, -2])]
-            for part in range(18):
-                idx = int(best[part])
-                if idx >= 0:
-                    kps[part] = candidate[idx, :2]
-        # scale to the canonical 384x512 frame
-        kps[kps[:, 0] >= 0] *= np.asarray([384.0 / w, 512.0 / h], np.float32)
+        with span("openpose.decode"):
+            dev = next(self.net.parameters()).device
+            peaks = find_peaks(torch.from_numpy(heat).to(dev))
+            conns = match_limbs(paf, peaks, img_h=h)
+            subset, candidate = assemble_people(peaks, conns)
+            kps = -np.ones((18, 2), np.float32)
+            if len(subset):
+                best = subset[np.argmax(subset[:, -2])]
+                for part in range(18):
+                    idx = int(best[part])
+                    if idx >= 0:
+                        kps[part] = candidate[idx, :2]
+            # scale to the canonical 384x512 frame
+            kps[kps[:, 0] >= 0] *= np.asarray([384.0 / w, 512.0 / h],
+                                              np.float32)
         return {"pose_keypoints_2d": kps.reshape(-1).tolist()}

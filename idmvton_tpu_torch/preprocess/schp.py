@@ -24,6 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from idmvton_tpu_torch.models.layers import Conv, conv2d
+from idmvton_tpu_torch.utils.profiling import span
 
 ATR_CLASSES = 18
 LIP_CLASSES = 20
@@ -589,18 +590,26 @@ class Parsing:
                 np.ascontiguousarray(x)).to(dev), impl=self.impl)
             return _resize_bilinear(fusion, x.shape[1:3])
 
-    def _logits(self, net: SCHPNet, image_rgb: np.ndarray,
-                size: int) -> np.ndarray:
-        x, meta = self.net_input(image_rgb, size)
-        fusion = self.fusion_logits(net, x)[0].cpu().numpy()
-        return _unletterbox_logits(fusion, meta)
+    def _logits(self, net: SCHPNet, image_rgb: np.ndarray, size: int,
+                which: Optional[str] = None) -> np.ndarray:
+        """One net's fusion logits at the image's size: the letterboxed
+        input and the net up to the host's read of its logits (the span
+        ``parsing.net``, attribute ``net``), then the un-letterbox
+        (``parsing.post``)."""
+        with span("parsing.net", net=which):
+            x, meta = self.net_input(image_rgb, size)
+            fusion = self.fusion_logits(net, x)[0].cpu().numpy()
+        with span("parsing.post"):
+            return _unletterbox_logits(fusion, meta)
 
     def labels(self, image_rgb: np.ndarray) -> np.ndarray:
         """The (H, W) label array: the refined ATR argmax with LIP's neck."""
-        atr_logits = self._logits(self.atr, image_rgb, 512)
-        parsing = refine_cloth(np.argmax(atr_logits, axis=2))
-        lip_logits = self._logits(self.lip, image_rgb, 473)
-        return add_neck(parsing, np.argmax(lip_logits, axis=2))
+        atr_logits = self._logits(self.atr, image_rgb, 512, "atr")
+        with span("parsing.post"):
+            parsing = refine_cloth(np.argmax(atr_logits, axis=2))
+        lip_logits = self._logits(self.lip, image_rgb, 473, "lip")
+        with span("parsing.post"):
+            return add_neck(parsing, np.argmax(lip_logits, axis=2))
 
     def __call__(self, image_rgb: np.ndarray):
         from PIL import Image

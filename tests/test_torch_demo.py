@@ -365,6 +365,30 @@ def test_service_runs_on_the_card_unless_asked():
         tdemo.TryonService(_args())
 
 
+@pytest.mark.parametrize("device, made", [("cuda", "stepwise_generate"),
+                                          ("cpu", "jit_generate")])
+def test_try_on_program_follows_jax_for_the_device(device, made):
+    """``_gen`` makes the try-on program as JAX's demo does: the staged
+    ``stepwise_generate`` (batched tower calls) on the accelerator,
+    ``jit_generate`` elsewhere; one program a step count."""
+    made_by = []
+
+    class Pipe:
+        def stepwise_generate(self, **kw):
+            made_by.append(("stepwise_generate", kw))
+            return object()
+
+        def jit_generate(self, **kw):
+            made_by.append(("jit_generate", kw))
+            return object()
+
+    svc = tdemo.TryonService.__new__(tdemo.TryonService)
+    svc.device, svc.pipe, svc._gens = torch.device(device), Pipe(), {}
+    fn = svc._gen(30)
+    assert svc._gen(30) is fn
+    assert made_by == [(made, {"num_steps": 30, "guidance_scale": 2.0})]
+
+
 def test_concurrent_requests_equal_sequential(services):
     """Two threads call ``tryon_arrays`` at once, one with the auto mask
     (OpenPose, SCHP) and one with a drawn mask; each result and preview

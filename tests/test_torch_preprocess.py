@@ -253,6 +253,24 @@ def test_openpose_wrapper_matches_jax(openpose_pair, monkeypatch):
     assert tpose(img) == want
 
 
+def test_openpose_two_scales_average_as_jax(openpose_pair, monkeypatch):
+    """Two scales: the maps of each resized back and averaged, as JAX
+    averages them (one scale returns its maps as they are)."""
+    tree, net = openpose_pair
+    img = np.random.default_rng(17).integers(0, 255, (96, 72, 3), np.uint8)
+    jpose = jop.OpenPose(jax.tree.map(jnp.asarray, tree), boxsize=64,
+                         scales=(0.5, 1.0))
+    monkeypatch.setattr(jpose, "_apply", jop.openpose_apply)
+    tpose = top.OpenPose(net, boxsize=64, scales=(0.5, 1.0))
+    with jax.disable_jit():
+        wpaf, wheat = jpose.heatmaps(img[:, :, ::-1])
+        want = jpose(img)
+    gpaf, gheat = tpose.heatmaps(img[:, :, ::-1])
+    _close(gpaf, wpaf)
+    _close(gheat, wheat)
+    assert tpose(img) == want
+
+
 def test_find_peaks_and_keypoints_match_jax():
     """The decode on one set of maps: two synthetic people's peaks and
     limbs, equal on both sides."""
@@ -273,6 +291,39 @@ def test_find_peaks_and_keypoints_match_jax():
     sub_j, cand_j = jop.assemble_people(peaks, conns)
     np.testing.assert_array_equal(sub_t, sub_j)
     np.testing.assert_array_equal(cand_t, cand_j)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_find_peaks_device_matches_jax(seed):
+    """The peaks of the device path (``find_peaks`` on a tensor, here on
+    the CPU: the same float64 ops the card runs) against JAX's scipy
+    ``find_peaks``, to the bit: noise at and around the threshold, and
+    smooth maps with a few thousand peaks."""
+    from scipy.ndimage import gaussian_filter
+    rng = np.random.default_rng(200 + seed)
+    heat = (rng.random((130, 97, 19)) * (0.2, 1.0, 4.0)[seed]).astype(
+        np.float32)
+    if seed:
+        heat = np.stack([gaussian_filter(heat[..., c], 2.0)
+                         for c in range(19)], -1)
+    peaks = top.find_peaks(torch.from_numpy(heat))
+    assert sum(len(p) for p in peaks) > 0
+    assert peaks == jop.find_peaks(heat)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_match_limbs_matches_jax_on_many_peaks(seed):
+    """The pair scoring at once (``_pair_scores``) against JAX's per-pair
+    loop on random maps with many peaks a part, repeated candidates and
+    pairs at one position: the same connections, scores to the bit."""
+    rng = np.random.default_rng(100 + seed)
+    h, w = 96, 72
+    heat = rng.random((h, w, 19)).astype(np.float32) * 0.5
+    paf = (rng.standard_normal((h, w, 38)) * 0.3).astype(np.float32)
+    peaks = [p[:40] + p[:2] for p in top.find_peaks(heat, threshold=0.05)]
+    conns = top.match_limbs(paf, peaks, img_h=h)
+    assert sum(len(c) for c in conns) > 0
+    assert conns == jop.match_limbs(paf, peaks, img_h=h)
 
 
 @pytest.fixture(scope="module")
@@ -449,6 +500,33 @@ def test_paint_and_extract_match_jax():
     wl, wuv = jvis.extract_iuv(coarse, fine, u, v)
     np.testing.assert_array_equal(gl.numpy(), np.asarray(wl))
     np.testing.assert_array_equal(guv.numpy(), np.asarray(wuv))
+
+
+@pytest.mark.parametrize("last", ["painted", "degenerate", "none"])
+def test_segmentation_painting_of_many_detections_matches_jax(last):
+    """dp_segm over 40 overlapping detections (a few degenerate, a few
+    invalid), whose visualizer zeroes the image before each one: the port
+    paints the last valid one alone and gives JAX's image, which paints all
+    40, to the bit; with a degenerate last detection the image is black,
+    with none valid the gray input."""
+    rng = np.random.default_rng(23)
+    img = rng.integers(0, 255, (120, 90, 3), np.uint8)
+    k = 40
+    labels = rng.integers(0, 25, (k, 28, 28)).astype(np.uint8)
+    xy = rng.uniform(-20, 80, (k, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(0, 70, (k, 2))],
+                           1).astype(np.float32)
+    boxes[::7, 2] = boxes[::7, 0]                   # zero width
+    valid = rng.random(k) > 0.2
+    valid[-1] = last != "none"
+    if last == "degenerate":
+        boxes[-1, 3] = boxes[-1, 1] - 5
+    elif last == "none":
+        valid[:] = False
+    got = tvis.paint_segmentation(img.copy(), boxes, labels, valid)
+    want = jvis.paint_segmentation(img.copy(), boxes, labels, valid)
+    np.testing.assert_array_equal(got, want)
+    assert (got.max() == 0) == (last == "degenerate")
 
 
 @pytest.mark.parametrize("category", ["upper_body", "lower_body",

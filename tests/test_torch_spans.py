@@ -330,27 +330,80 @@ def _photos(seed):
 
 
 def test_tryon_service_stage_spans(service):
-    """A drawn-mask request through ``TryonService.tryon``: each stage the
-    span ``demo.<stage>``, ``stage_seconds`` keyed as before and equal to
-    the stages' spans, the try-on's ``serve.request`` inside
-    ``demo.tryon``."""
+    """A drawn-mask request through ``TryonService.tryon``: one root
+    ``demo.request``, each stage the span ``demo.<stage>`` under it,
+    ``stage_seconds`` keyed as before and equal to the stages' spans, the
+    try-on's ``serve.request`` inside ``demo.tryon``."""
     person, garment, mask = _photos(0)
     before = profiling.spans()
     stages = {}
     service.tryon(person, garment, "shirt", auto_mask=False,
                   mask_image=mask, steps=2, seed=1, stage_seconds=stages)
-    new = _new(before)
+    by, root = _tree(_new(before))
+    assert root.name == "demo.request"
     assert list(stages) == ["crop", "densepose", "tryon"]
-    by = {}
-    for s in new:
-        by.setdefault(s.name, []).append(s)
     for name, seconds in stages.items():
         (s,) = by[f"demo.{name}"]
-        assert s.parent is None and s.seconds == seconds
+        assert s.parent == root.id and s.seconds == seconds
     (request,) = by["serve.request"]
     assert request.parent == by["demo.tryon"][0].id
-    assert all(s.name.startswith(("demo.", "serve.", "encode."))
-               for s in new)
+    assert all(s.name.startswith(("demo.", "serve.", "encode.",
+                                  "densepose.")) for s in sum(by.values(),
+                                                              []))
+
+
+# each net's device part and host part, and the stage that holds them
+NET_SPANS = {"openpose.net": "demo.openpose",
+             "openpose.decode": "demo.openpose",
+             "parsing.net": "demo.parsing", "parsing.post": "demo.parsing",
+             "mask.build": "demo.mask", "densepose.net": "demo.densepose",
+             "densepose.paint": "demo.densepose"}
+
+
+def test_preprocessing_spans_nest_in_their_stages(service, monkeypatch):
+    """An auto-mask request: each net's spans under its ``demo.<stage>``
+    (SCHP's ``parsing.net`` once for ATR and once for LIP), the host part
+    after the device part, each a range of the host's timeline alone
+    under a profiler; ``densepose.detections`` counted once a request,
+    by the detections DensePose kept."""
+    from idmvton_tpu_torch.preprocess.densepose import visualize
+    person, garment, _ = _photos(2)
+    counts = []
+    real = visualize.count
+
+    def counting(name, n=1):
+        counts.append((name, n))
+        real(name, n)
+
+    monkeypatch.setattr(visualize, "count", counting)
+    kept = []
+    outputs = service.densepose._outputs
+    monkeypatch.setattr(service.densepose, "_outputs", lambda image: (
+        kept.append(outputs(image)) or kept[-1]))
+    before = profiling.spans()
+    total = profiling.counters().get("densepose.detections", 0)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        service.tryon(person, garment, "shirt", auto_mask=True, steps=1,
+                      seed=3)
+    by, root = _tree(_new(before))
+    assert root.name == "demo.request"
+    for name, stage in NET_SPANS.items():
+        (parent,) = by[stage]
+        assert by[name] and all(s.parent == parent.id for s in by[name]), \
+            name
+    assert [s.attrs for s in by["parsing.net"]] == [{"net": "atr"},
+                                                     {"net": "lip"}]
+    for net, host in (("openpose.net", "openpose.decode"),
+                      ("densepose.net", "densepose.paint")):
+        assert by[net][0].end_ns <= by[host][-1].start_ns
+    ranges = [e for e in prof.profiler.kineto_results.events()
+              if e.name() in NET_SPANS]
+    assert {e.name() for e in ranges} == set(NET_SPANS)
+    assert all("CPU" in str(e.device_type()) for e in ranges)
+    valid = int(kept[-1]["valid"].sum())
+    assert counts == [("densepose.detections", valid)]
+    assert profiling.counters()["densepose.detections"] - total == valid
 
 
 @pytest.mark.parametrize("drawn", [True, False], ids=["drawn", "auto"])
