@@ -9,7 +9,7 @@ failure:
 1. require CUDA; print the card's name and power limit (nvidia-smi) and
    set the TF32 flags off (fp32 products in full fp32 on both sides);
 2. build the kernels from ``idmvton_tpu_torch/ops/csrc`` with nvcc;
-3. hold each of the eleven kernel entry points against its plain PyTorch
+3. hold each of the twelve kernel entry points against its plain PyTorch
    version at the shapes its path gives it (phase 14's TP and SP ranks'
    too; bf16; the conv kernels also on
    the fp32 decode's and the demo's preprocessing nets' fp32
@@ -46,7 +46,7 @@ failure:
    every step from the captured step, whose launches count as an eager
    step's);
    then one fp32 VAE decode (``VAEConfig.force_upcast``) of a full-width
-   latent through the conv and GroupNorm statistics kernels, every conv
+   latent through the conv and GroupNorm kernels, every conv
    site on a kernel, against the bf16 decode;
 6. the inference CLI's batch loop (``cli.infer.run``, with its
    BatchLoader, tokenizers and ip_pixels resize) over one in-memory batch
@@ -220,7 +220,7 @@ TINY_CONV_PER_BATCH = {"conv3x3": 860, "conv3x3_hblock": 1}
 DECODE_FP32_MEAN_REL = 5e-2
 # the kernels each serving path must launch, and no others
 BF16_PATH = ("ln_linear", "fused_layer_norm", "gn_spatial_stats", "conv3x3",
-             "conv3x3_hblock", "flash_attention_gemm")
+             "conv3x3_hblock", "flash_attention_gemm", "gn_apply")
 PATH_KERNELS = {
     "bf16": BF16_PATH,
     "cli": BF16_PATH,
@@ -228,12 +228,13 @@ PATH_KERNELS = {
     "checkpoint": BF16_PATH,
     "variant": ("ln_linear", "fused_layer_norm", "gn_spatial_stats",
                 "conv3x3_hblock", "flash_attention_gemm", "ln_linear_i8",
-                "cross_attention_small_kv", "conv3x3_padacc"),
+                "cross_attention_small_kv", "conv3x3_padacc", "gn_apply"),
     # read on an H100: the tiny stack at 768x1024 also reaches all six (the
     # 128-wide level and mid block take ln_linear and flash_attention_gemm,
     # one VAE conv takes conv3x3_hblock) besides flash_attention
     "tiny": BF16_PATH + ("flash_attention",),
-    "decode_fp32": ("conv3x3", "conv3x3_hblock", "gn_spatial_stats"),
+    "decode_fp32": ("conv3x3", "conv3x3_hblock", "gn_spatial_stats",
+                    "gn_apply"),
     # the demo request: the preprocessing nets, then one try-on request
     "demo": BF16_PATH,
     # two jit_generate requests, every step replayed from the captured step
@@ -245,7 +246,8 @@ PATH_KERNELS = {
     # two adamw8bit steps of phase 10's stack: adamw8bit's norm and update
     "train_adamw8bit": BF16_PATH + ("adam_int8_update", "adam_int8_norm"),
     # cli/train.py --micro at TRAIN_CLI_SIZE, two runs (train, resume)
-    "train_cli": ("conv3x3", "gn_spatial_stats", "flash_attention"),
+    "train_cli": ("conv3x3", "gn_spatial_stats", "flash_attention",
+                  "gn_apply"),
     # the fp32 preprocessing nets: the DensePose R-CNN's train steps, Face
     # and Hand, DensePose.detect under inference_on_dataset
     "densepose_train": ("conv3x3", "conv3x3_hblock"),
@@ -510,6 +512,28 @@ def kernel_cases(dev):
                     3 * x.numel(), rate="fp32", tol="gn",
                     vjp=(AG.gn_spatial_stats, (x,), {},
                          N.gn_spatial_stats_torch))
+
+    def gn_apply_case(shape, silu=True, dtype=torch.bfloat16, rows=None):
+        """x with a mean off zero, the channel means of the whole image
+        (for an SP rank's ``rows``, the first of them: group_sums adds
+        every rank's sums), an fp32 affine near the identity, 32 groups."""
+        x = (rn(*shape, scale=1.5, dtype=torch.float32) + 0.4).to(dtype)
+        xf = x.float().reshape(shape[0], -1, shape[-1])
+        m1, m2 = xf.mean(1), xf.square().mean(1)
+        del xf
+        if rows is not None:
+            x = x[:, :rows].contiguous()
+        sc = rn(shape[-1], scale=0.1, dtype=torch.float32) + 1.0
+        bi = rn(shape[-1], scale=0.1, dtype=torch.float32)
+        kw = {"num_groups": 32, "silu": silu}
+        ins = (x, m1, m2, sc, bi)
+        fp32 = " fp32" if dtype == torch.float32 else ""
+        return case(f"x{tuple(x.shape)}{fp32}{' silu' if silu else ''}"
+                    f"{' (an SP=2 rank)' if rows is not None else ''}",
+                    lambda: N.gn_apply(*ins, **kw),
+                    lambda: N.gn_apply_torch(*ins, **kw), list(ins),
+                    (5 if silu else 2) * x.numel(), rate="fp32",
+                    vjp=(AG.gn_apply, ins, kw, N.gn_apply_torch))
 
     def conv_case(fn, b, h, w, cin, cout, dtype=torch.bfloat16):
         """bf16, or an fp32 x with the bf16 weights (the fp32 decode):
@@ -786,6 +810,23 @@ def kernel_cases(dev):
          "idmvton_tpu/ops/pallas_attention.py:743", sdpa, [
              fused_case(4, 6144, 4, 16, 3072),
              fused_case(4, 6144, 10, 64, 3072)]),
+        # last, so that the cases above draw the inputs they drew before it
+        ("gn_apply", csrc + "gn_stats.cu",
+         "none: the JAX package leaves the tail after the statistics to "
+         "XLA's fusion",
+         "none: F.group_norm takes no given means (it computes two-pass "
+         "statistics)", [
+             # the UNets' GroupNorm widths at their three levels, TryonNet
+             # (B = 4) and GarmentNet (B = 2); the VAE encode's level 0,
+             # the decode's 512x384 level (its attention's norm: no SiLU)
+             # and the fp32 decode's 1024x768 level; an SP=2 rank's rows
+             *(gn_apply_case((b, h, w, c)) for b in (4, 2)
+               for h, w in ((128, 96), (64, 48), (32, 24))
+               for c in (320, 640, 960, 1280, 1920, 2560)),
+             gn_apply_case((6, 1024, 768, 128)),
+             gn_apply_case((2, 512, 384, 512), silu=False),
+             gn_apply_case((2, 1024, 768, 128), dtype=torch.float32),
+             gn_apply_case((4, 128, 96, 320), rows=64)]),
     ]
 
 
@@ -1014,7 +1055,8 @@ def check_decode_fp32(models, wrappers, gen):
         vae.cfg = cfg
     (img16, c16), (img32, c32) = runs["bf16"], runs["fp32"]
     counts = gate_launches(wrappers, "decode_fp32",
-                           {"gn_spatial_stats": c16["gn_spatial_stats"]})
+                           {"gn_spatial_stats": c16["gn_spatial_stats"],
+                            "gn_apply": c16["gn_apply"]})
     sites = c16["conv3x3"] + c16["conv3x3_hblock"]
     if c32["conv3x3"] + c32["conv3x3_hblock"] != sites:
         fail(f"decode fp32: {c32['conv3x3']} + {c32['conv3x3_hblock']} conv "
@@ -2555,12 +2597,13 @@ def check_evaluate(wrappers, dev):
 # sites.
 PARALLEL_STEP = {
     "single": {"ln_linear": 350, "fused_layer_norm": 70,
-               "gn_spatial_stats": 85, "conv3x3": 66,
+               "gn_spatial_stats": 85, "gn_apply": 85, "conv3x3": 66,
                "flash_attention_gemm": 140},
     "tp": {"ln_linear": 320, "fused_layer_norm": 70, "gn_spatial_stats": 85,
-           "conv3x3": 66, "flash_attention_gemm": 120, "flash_attention": 20},
+           "gn_apply": 85, "conv3x3": 66, "flash_attention_gemm": 120,
+           "flash_attention": 20},
     "sp": {"ln_linear": 350, "fused_layer_norm": 70, "gn_spatial_stats": 85,
-           "conv3x3": 66, "flash_attention": 140},
+           "gn_apply": 85, "conv3x3": 66, "flash_attention": 140},
 }
 # (max rel, mean rel) of the gathered TP=2 / SP=2 guided noise prediction
 # against the single-process impl="cuda" step on the same inputs. Both

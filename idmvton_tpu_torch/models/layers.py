@@ -10,7 +10,9 @@ affine parameters are fp32 as in the JAX package.
 
 ``conv2d`` routes 3x3 stride-1 SAME convs to the ``conv3x3`` kernels and
 ``group_norm`` its statistics to ``gn_spatial_stats`` exactly where the JAX
-package takes its Pallas kernels; everything else is plain PyTorch.
+package takes its Pallas kernels, and there the rest of the GroupNorm (group
+combine, affine, SiLU: what XLA fuses for the JAX package) to ``gn_apply``;
+everything else is plain PyTorch.
 ``IDMVTON_CONV_PADACC=1`` swaps the ``conv3x3`` sites (not the
 ``conv3x3_hblock`` ones) to the padded-accumulator kernel, as in JAX. The
 conv kernels take an fp32 x (the VAE's fp32 decode, the preprocessing nets)
@@ -35,7 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from idmvton_tpu_torch.ops.autograd import (
-    conv3x3, conv3x3_hblock, conv3x3_padacc, gn_spatial_stats,
+    conv3x3, conv3x3_hblock, conv3x3_padacc, gn_apply, gn_spatial_stats,
 )
 from idmvton_tpu_torch.ops.dispatch import resolve
 from idmvton_tpu_torch.ops.cuda_conv import (
@@ -43,7 +45,7 @@ from idmvton_tpu_torch.ops.cuda_conv import (
     conv_padacc_enabled,
 )
 from idmvton_tpu_torch.ops.cuda_norm import (
-    gn_stats_supported, layer_norm_torch,
+    gn_apply_torch, gn_stats_supported, layer_norm_torch,
 )
 from idmvton_tpu_torch.ops.quant import (
     dequantize_kernel_int8, quantize_kernel_int8,
@@ -322,32 +324,22 @@ def group_norm(p, x, *, num_groups: int, eps: float = 1e-5,
     added before the statistics."""
     spatial = p.spatial
     b, c = x.shape[0], x.shape[-1]
-    g = num_groups
     n_spatial = x.numel() // (b * c)
+    kw = dict(num_groups=num_groups, eps=eps, silu=act == "silu")
     if (resolve(impl, x) == "cuda" and gn_stats_supported(x)
             and n_spatial >= 64):
         s1, s2 = gn_spatial_stats(x)
         mean_c, mean2_c = group_sums(s1, s2, n_spatial, spatial)
-    elif spatial is not None:
-        xf = x.float().reshape(b, -1, c)
+        return gn_apply(x, mean_c, mean2_c, p.scale.float(), p.bias.float(),
+                        **kw)
+    xf = x.float().reshape(b, -1, c)
+    if spatial is not None:
         mean_c, mean2_c = group_sums(xf.sum(1), xf.square().sum(1),
                                      n_spatial, spatial)
     else:
-        xf = x.float().reshape(b, -1, c)
         mean_c, mean2_c = xf.mean(1), xf.square().mean(1)
-    gmean = mean_c.reshape(b, g, c // g).mean(-1)
-    gmean2 = mean2_c.reshape(b, g, c // g).mean(-1)
-    inv = torch.rsqrt((gmean2 - gmean.square()).clamp_min(0.0) + eps)
-    inv_c = inv.repeat_interleave(c // g, dim=-1)
-    mean_bc = gmean.repeat_interleave(c // g, dim=-1)
-    w = inv_c * p.scale.float()[None]
-    shift = p.bias.float()[None] - mean_bc * w
-    shape = (b,) + (1,) * (x.dim() - 2) + (c,)
-    xf = x.float() * w.reshape(shape)
-    xf.add_(shift.reshape(shape))
-    if act == "silu":
-        F.silu(xf, inplace=True)
-    return xf.to(x.dtype)
+    return gn_apply_torch(x, mean_c, mean2_c, p.scale.float(),
+                          p.bias.float(), **kw)
 
 
 def layer_norm(p, x, *, eps: float = 1e-5):

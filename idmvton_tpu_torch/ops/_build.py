@@ -48,6 +48,10 @@ SIGNATURES = {
     "idm_ln_quant_i8": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
     "idm_layer_norm": [_P, _P, _P, _P, _I, _I, _F, _P],
     "idm_gn_stats": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, mean_c, mean2_c, scale, bias, out, B, S, C, groups, eps, silu,
+    # bf16, the card's SMs
+    "idm_gn_apply": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I,
+                     _P],
     # ... B, H, W, Cin, Cout, f32, then the plan: bn, tile_h, tile_w
     "idm_conv3x3": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # ... B, H, W, Cin, Cout, f32, then the plan: bm, bn, tiles_per_image

@@ -141,6 +141,18 @@ def gn_spatial_stats(x, *, kernel=None):
     return GnStatsVJP.apply(kernel, x)
 
 
+# -- #13: the GroupNorm apply -------------------------------------------------
+
+
+def gn_apply(x, mean_c, mean2_c, scale, bias, *, num_groups: int,
+             eps: float = 1e-5, silu: bool = False, kernel=None):
+    """#13 (no JAX VJP: JAX differentiates the tail XLA fuses): VJP of
+    ``gn_apply_torch`` for x, the channel means, scale and bias."""
+    return _apply(kernel or N.gn_apply, N.gn_apply_torch,
+                  (x, mean_c, mean2_c, scale, bias), num_groups=num_groups,
+                  eps=eps, silu=silu)
+
+
 # -- #5, #6, #7: the 3x3 convolutions ----------------------------------------
 
 

@@ -1,16 +1,18 @@
-"""LayerNorm + GEMM, standalone LayerNorm and GroupNorm statistics.
+"""LayerNorm + GEMM, standalone LayerNorm, GroupNorm statistics and apply.
 
 Counterpart of ``idmvton_tpu/ops/pallas_norm.py``. Each kernel wrapper here
 launches its CUDA kernel (``csrc/ln_linear.cu``, ``csrc/ln_linear_i8.cu``,
 ``csrc/gn_stats.cu``) on CUDA tensors and raises on anything else (CPU
 tensors, types the kernel does not take: bf16 activations, int8 weights
-for the W8A8 kernel, fp32 also for the GroupNorm statistics, a bf16 or
+for the W8A8 kernel, fp32 also for the GroupNorm kernels, a bf16 or
 fp32 bias for ``ln_linear`` and ``ln_linear_i8``); the
 ``*_torch`` function beside it is its plain version (the JAX package's XLA
-formula), which the sites take on CPU tensors and which the tests and
-``chip_smoke.py`` compare against. The ``*_supported`` predicates are shape
-conditions only, so a site never swaps in the plain version for a CUDA
-tensor of the wrong type: the wrapper raises.
+formula; for ``gn_apply``, which replaces no Pallas kernel, the tail the
+JAX package leaves to XLA's fusion), which the sites take on CPU tensors
+and which the tests and ``chip_smoke.py`` compare against. The
+``*_supported`` predicates are shape conditions only, so a site never swaps
+in the plain version for a CUDA tensor of the wrong type: the wrapper
+raises.
 
 All statistics are one-pass fp32 with the clamped variance
 ``var = max(E[x^2] - E[x]^2, 0)`` of the JAX package (not the two-pass
@@ -483,3 +485,68 @@ def gn_stats_supported(x) -> bool:
     """JAX ``gn_stats_supported`` (rank >= 3, C >= 8), plus the kernel's
     channel-pair loads (even C)."""
     return x.dim() >= 3 and x.shape[-1] >= 8 and x.shape[-1] % 2 == 0
+
+
+# ---------------------------------------------------------------------------
+# GroupNorm apply (#13; no Pallas kernel: the JAX package leaves this tail to
+# XLA's fusion)
+# ---------------------------------------------------------------------------
+
+def gn_apply_torch(x, mean_c, mean2_c, scale, bias, *, num_groups: int,
+                   eps: float = 1e-5, silu: bool = False):
+    """GroupNorm of x (B, ..., C) from its per-channel fp32 means of x and
+    x^2 (B, C): the group statistics, the fp32 affine ``scale`` / ``bias``
+    (C,) and an optional SiLU, in fp32 with one rounding to x's type."""
+    b, c = x.shape[0], x.shape[-1]
+    g = num_groups
+    gmean = mean_c.reshape(b, g, c // g).mean(-1)
+    gmean2 = mean2_c.reshape(b, g, c // g).mean(-1)
+    inv = torch.rsqrt((gmean2 - gmean.square()).clamp_min(0.0) + eps)
+    inv_c = inv.repeat_interleave(c // g, dim=-1)
+    mean_bc = gmean.repeat_interleave(c // g, dim=-1)
+    w = inv_c * scale[None]
+    shift = bias[None] - mean_bc * w
+    shape = (b,) + (1,) * (x.dim() - 2) + (c,)
+    xf = x.float() * w.reshape(shape)
+    xf.add_(shift.reshape(shape))
+    if silu:
+        F.silu(xf, inplace=True)
+    return xf.to(x.dtype)
+
+
+def gn_apply(x, mean_c, mean2_c, scale, bias, *, num_groups: int,
+             eps: float = 1e-5, silu: bool = False):
+    """Kernel version of ``gn_apply_torch`` for bf16 or fp32 x (B, ..., C)
+    with C even and a multiple of ``num_groups``: one read of x and one
+    write of the output in x's type."""
+    _build.no_autograd("gn_apply", x, mean_c, mean2_c, scale, bias)
+    b, c = x.shape[0], x.shape[-1]
+    s = x.numel() // max(b * c, 1)
+    if (c % 2 or c % num_groups or b > 65535 or s > INT32_MAX
+            or tuple(mean_c.shape) != (b, c)
+            or tuple(mean2_c.shape) != (b, c)
+            or tuple(scale.shape) != (c,) or tuple(bias.shape) != (c,)):
+        raise ValueError(f"gn_apply kernel: unsupported shapes x "
+                         f"{tuple(x.shape)}, means {tuple(mean_c.shape)} / "
+                         f"{tuple(mean2_c.shape)}, affine "
+                         f"{tuple(scale.shape)} / {tuple(bias.shape)} with "
+                         f"{num_groups} groups (needs an even C that the "
+                         f"groups divide, means (B, C), affine (C,))")
+    kind = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+    dev = x.device
+    xp = _build.ptr(x, "x", kind)
+    out = torch.empty(x.shape, dtype=x.dtype, device=dev)
+    _build.call("idm_gn_apply", xp,
+                _build.ptr(mean_c, "mean_c", torch.float32, dev),
+                _build.ptr(mean2_c, "mean2_c", torch.float32, dev),
+                _build.ptr(scale, "scale", torch.float32, dev),
+                _build.ptr(bias, "bias", torch.float32, dev),
+                _build.ptr(out, "out", kind),
+                b, s, c, num_groups, float(eps), int(silu),
+                int(kind == torch.bfloat16), _sm_count(dev.index),
+                _build.stream_ptr(dev))
+    gn_apply.launches += 1
+    return out
+
+
+gn_apply.launches = 0

@@ -37,7 +37,7 @@ GUIDANCE = 2.0
 KERNELS = ("ln_linear", "fused_layer_norm", "gn_spatial_stats", "conv3x3",
            "conv3x3_hblock", "flash_attention_gemm", "ln_linear_i8",
            "cross_attention_small_kv", "conv3x3_padacc", "flash_attention",
-           "flash_attention_fused_qkv")
+           "flash_attention_fused_qkv", "gn_apply")
 
 
 def random_affine_(module, seed: int):

@@ -56,7 +56,7 @@ def launch_counters() -> dict:
     fns = (N.ln_linear, N.fused_layer_norm, N.gn_spatial_stats, C.conv3x3,
            C.conv3x3_hblock, A.flash_attention_gemm, N.ln_linear_i8,
            A.cross_attention_small_kv, C.conv3x3_padacc, A.flash_attention,
-           A.flash_attention_fused_qkv)
+           A.flash_attention_fused_qkv, N.gn_apply)
     return {f.__name__: f for f in fns}
 
 

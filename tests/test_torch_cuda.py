@@ -25,6 +25,13 @@ probabilities to bf16 for the PV product and their plain versions the
 normalized ones: the same bf16 bound.
 The GroupNorm statistics are fp32 sums in another order (deterministic,
 no atomics): max error <= 1e-5 * max |sum of squares|.
+The GroupNorm apply (#13) computes the plain version's fp32 operations in
+its order with the same roundings (a separate multiply and add, rsqrtf,
+expf, one rounding to x's type) but for the group means, which it adds in
+another order: w and shift then differ by a few fp32 ulps, so each output
+lies within one bf16 ulp of the plain one (none for an fp32 x) plus 16
+fp32 ulps of |x w| + |mean w| + |bias| (the terms the rounded sum is made
+of, where cancellation near zero would otherwise magnify the ulps).
 The conv kernel on an fp32 x narrows x to bf16 and multiplies by the bf16
 weights with fp32 accumulation (the TPU kernel's DEFAULT precision): against
 the plain version in full fp32 (``torch.backends.cudnn.allow_tf32 = False``,
@@ -160,6 +167,102 @@ def test_gn_stats_kernel(dev, shape, dtype):
     assert float((s2 - r2).abs().max()) <= SUM_TOL * scale
 
 
+def _gn_apply_case(seed, shape, dtype, dev, groups=32):
+    """x with a mean off zero, its channel means as group_sums gives them,
+    and an fp32 affine near the identity."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, c = shape[0], shape[-1]
+    x = (_randn(g, *shape, dev=dev, dtype=torch.float32, scale=1.5)
+         + 0.4).to(dtype)
+    xf = x.float().reshape(b, -1, c)
+    mean_c, mean2_c = xf.mean(1), xf.square().mean(1)
+    del xf
+    scale = _randn(g, c, dev=dev, dtype=torch.float32, scale=0.1) + 1.0
+    bias = _randn(g, c, dev=dev, dtype=torch.float32, scale=0.1)
+    return x, mean_c, mean2_c, scale, bias
+
+
+def _assert_gn_apply_close(got, want, x, mean_c, mean2_c, scale, bias,
+                           groups, eps):
+    """Each output within one ulp of the plain output in x's type (bf16;
+    none for fp32) plus 16 fp32 ulps of |x w| + |mean w| + |bias|, w and
+    mean the plain version's (the module docstring)."""
+    b, c = x.shape[0], x.shape[-1]
+    gmean = mean_c.reshape(b, groups, -1).mean(-1)
+    gmean2 = mean2_c.reshape(b, groups, -1).mean(-1)
+    inv = torch.rsqrt((gmean2 - gmean.square()).clamp_min(0.0) + eps)
+    w = inv.repeat_interleave(c // groups, dim=-1) * scale
+    mw = gmean.repeat_interleave(c // groups, dim=-1) * w
+    shape = (b,) + (1,) * (x.dim() - 2) + (c,)
+    bound = x.float().abs_().mul_(w.abs().reshape(shape))
+    bound.add_((mw.abs() + bias.abs()).reshape(shape)).mul_(16 * 2.0 ** -24)
+    wf = want.float()
+    if x.dtype == torch.bfloat16:
+        _, e = torch.frexp(wf)
+        bound.add_(torch.ldexp(torch.ones_like(wf), e - 8) * (wf != 0))
+    diff = (got.float() - wf).abs_()
+    assert torch.isfinite(got).all()
+    worst = float((diff - bound).max())
+    assert worst <= 0, (worst, float(diff.max()))
+
+
+# the UNets' GroupNorm widths at their three levels (TryonNet B = 4,
+# GarmentNet B = 2); the VAE encode's and decode's largest bf16 inputs and
+# the fp32 decode's 1024x768 level; an SP=2 rank's rows (its means are the
+# whole image's); the narrow-vector edges (C not a multiple of 8 or 4), a
+# partial 128-channel column, one channel a group, a (B, S, C) input
+GN_APPLY_UNET = [(b, h, w, c) for b in (4, 2)
+                 for h, w in ((128, 96), (64, 48), (32, 24))
+                 for c in (320, 640, 960, 1280, 1920, 2560)]
+GN_APPLY_OTHER = [((6, 1024, 768, 128), torch.bfloat16, 32),
+                  ((2, 512, 384, 512), torch.bfloat16, 32),
+                  ((2, 1024, 768, 128), torch.float32, 32),
+                  ((2, 9, 13, 42), torch.bfloat16, 7),
+                  ((3, 300, 42), torch.float32, 6),
+                  ((2, 5, 7, 40), torch.float32, 8),
+                  ((2, 77, 96), torch.bfloat16, 32),
+                  ((1, 64, 48, 2560), torch.bfloat16, 2560)]
+
+
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("shape", GN_APPLY_UNET)
+def test_gn_apply_kernel_unet_shapes(dev, shape, silu):
+    x, m1, m2, sc, bi = _gn_apply_case(23, shape, torch.bfloat16, dev)
+    before = cuda_norm.gn_apply.launches
+    got = cuda_norm.gn_apply(x, m1, m2, sc, bi, num_groups=32, silu=silu)
+    want = cuda_norm.gn_apply_torch(x, m1, m2, sc, bi, num_groups=32,
+                                    silu=silu)
+    torch.cuda.synchronize()
+    assert cuda_norm.gn_apply.launches == before + 1
+    assert got.dtype == x.dtype and got.shape == x.shape
+    _assert_gn_apply_close(got, want, x, m1, m2, sc, bi, 32, 1e-5)
+
+
+@pytest.mark.parametrize("shape,dtype,groups", GN_APPLY_OTHER)
+def test_gn_apply_kernel_other_shapes(dev, shape, dtype, groups):
+    x, m1, m2, sc, bi = _gn_apply_case(24, shape, dtype, dev, groups)
+    got = cuda_norm.gn_apply(x, m1, m2, sc, bi, num_groups=groups, eps=1e-6,
+                             silu=True)
+    want = cuda_norm.gn_apply_torch(x, m1, m2, sc, bi, num_groups=groups,
+                                    eps=1e-6, silu=True)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    _assert_gn_apply_close(got, want, x, m1, m2, sc, bi, groups, 1e-6)
+
+
+def test_gn_apply_kernel_sp_rank_rows(dev):
+    """An SP=2 rank's 64 of 128 rows with the whole image's means (what
+    group_sums returns after adding every rank's sums)."""
+    x, m1, m2, sc, bi = _gn_apply_case(25, (4, 128, 96, 320),
+                                       torch.bfloat16, dev)
+    rows = x[:, :64].contiguous()
+    got = cuda_norm.gn_apply(rows, m1, m2, sc, bi, num_groups=32, silu=True)
+    want = cuda_norm.gn_apply_torch(rows, m1, m2, sc, bi, num_groups=32,
+                                    silu=True)
+    torch.cuda.synchronize()
+    _assert_gn_apply_close(got, want, rows, m1, m2, sc, bi, 32, 1e-5)
+
+
 @pytest.mark.parametrize("b,h,w,cin,cout,bias", [
     (2, 10, 12, 128, 256, True), (1, 16, 8, 320, 320, True),
     (3, 7, 9, 256, 128, False), (2, 32, 24, 640, 1280, True),
@@ -232,11 +335,13 @@ def test_vae_decode_fp32_runs_the_conv_kernels(dev):
     g = torch.Generator(device=dev).manual_seed(16)
     z = _randn(g, 2, 32, 24, cfg.latent_channels, dev=dev)
     counts = (cuda_conv.conv3x3.launches,
-              cuda_norm.gn_spatial_stats.launches)
+              cuda_norm.gn_spatial_stats.launches, cuda_norm.gn_apply.launches)
     got = vae.decode(z)
     torch.cuda.synchronize()
     assert cuda_conv.conv3x3.launches > counts[0]
     assert cuda_norm.gn_spatial_stats.launches > counts[1]
+    assert (cuda_norm.gn_apply.launches - counts[2]
+            == cuda_norm.gn_spatial_stats.launches - counts[1])
     want = copy.deepcopy(vae).cpu().decode(z.cpu())
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert _rel_err(got.cpu(), want) <= BF16_TOL
@@ -635,6 +740,13 @@ def test_kernels_refuse_other_types(dev):
             torch.zeros(2, 16, 384, device=dev), heads=2)
     with pytest.raises(ValueError, match="float32"):
         cuda_norm.gn_spatial_stats(x.half())
+    m = torch.zeros(2, 128, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_norm.gn_apply(x.half(), m, m, g, g, num_groups=32)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_norm.gn_apply(x, m, m, g.half(), g, num_groups=32)
+    with pytest.raises(ValueError, match="unsupported"):
+        cuda_norm.gn_apply(x, m, m, g, g, num_groups=48)
     with pytest.raises(ValueError, match="int8"):
         cuda_norm.ln_linear_i8(x.bfloat16(), g, g, w.bfloat16(), g)
     with pytest.raises(ValueError, match="bfloat16"):
@@ -742,6 +854,9 @@ def test_replayed_step_equals_eager_step(dev, width):
         steps, got, (want, again) = _replayed_vs_eager(
             pipe, _step_inputs(pipe, dev), guidance_rescale=0.3)
     assert steps.graph is not None
+    # every GroupNorm whose statistics take #3 takes #13 in the capture
+    delta = steps.counts.delta
+    assert delta["gn_apply"] == delta["gn_spatial_stats"] > 0, delta
     assert torch.equal(want, again)
     assert torch.equal(got, want)
 
@@ -1063,6 +1178,10 @@ def _vjp_cases(dev):
         "gn_spatial_stats": (AG.gn_spatial_stats,
                              cuda_norm.gn_spatial_stats_torch,
                              (rn(2, 8, 12, 64) + 0.3,), {}),
+        "gn_apply": (AG.gn_apply, cuda_norm.gn_apply_torch,
+                     _gn_apply_case(26, (2, 8, 12, 128), torch.bfloat16,
+                                    dev),
+                     {"num_groups": 32, "silu": True}),
         "conv3x3": (AG.conv3x3, cuda_conv.conv3x3_torch,
                     (xc, k3, rn(128, scale=0.1)), {}),
         "conv3x3_hblock": (AG.conv3x3_hblock, cuda_conv.conv3x3_torch,
@@ -1092,7 +1211,7 @@ def _vjp_cases(dev):
 
 
 VJP_CASES = ["ln_linear", "ln_linear_geglu", "fused_layer_norm",
-             "gn_spatial_stats", "conv3x3", "conv3x3_hblock",
+             "gn_spatial_stats", "gn_apply", "conv3x3", "conv3x3_hblock",
              "conv3x3_padacc", "flash_attention_gemm", "ln_linear_i8",
              "flash_attention", "flash_attention_concat_kv",
              "cross_attention_small_kv"]
@@ -1226,11 +1345,11 @@ def test_tiny_train_steps_cuda_match_torch(dev):
     for i in range(2):
         loss_c, g_c, n_c = grads("cuda")
         loss_t, g_t, n_t = grads("torch")
-        assert {k for k, n in n_t.items() if n} == {"conv3x3",
-                                                     "gn_spatial_stats"}, n_t
+        assert {k for k, n in n_t.items() if n} == {
+            "conv3x3", "gn_spatial_stats", "gn_apply"}, n_t
         assert all(n_c[k] > n_t[k] for k in n_t if n_t[k]), (n_c, n_t)
         for k in ("conv3x3", "ln_linear", "flash_attention_gemm",
-                  "flash_attention", "gn_spatial_stats"):
+                  "flash_attention", "gn_spatial_stats", "gn_apply"):
             assert n_c[k] > 0, n_c
         assert abs(loss_c - loss_t) <= 3e-2 * abs(loss_t), (i, loss_c,
                                                              loss_t)

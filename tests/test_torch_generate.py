@@ -515,7 +515,7 @@ def test_counted_capture_restores_and_adds_on_replay():
         "ln_linear", "fused_layer_norm", "gn_spatial_stats", "conv3x3",
         "conv3x3_hblock", "flash_attention_gemm", "ln_linear_i8",
         "cross_attention_small_kv", "conv3x3_padacc", "flash_attention",
-        "flash_attention_fused_qkv"}
+        "flash_attention_fused_qkv", "gn_apply"}
     before = {k: f.launches for k, f in counters.items()}
     with tgraph.CountedCapture() as cc:
         cuda_norm.ln_linear.launches += 3       # what a capture records

@@ -84,6 +84,51 @@ def test_gn_spatial_stats_plain_matches_pallas(shape):
     _close(g2, w2, atol=1e-3)
 
 
+def _old_group_norm_tail(x, mean_c, mean2_c, p, g, eps, act):
+    """``models/layers.py::group_norm`` after its statistics, as it stood
+    before the tail moved into ``cuda_norm.gn_apply_torch``."""
+    import torch.nn.functional as F
+    b, c = x.shape[0], x.shape[-1]
+    gmean = mean_c.reshape(b, g, c // g).mean(-1)
+    gmean2 = mean2_c.reshape(b, g, c // g).mean(-1)
+    inv = torch.rsqrt((gmean2 - gmean.square()).clamp_min(0.0) + eps)
+    inv_c = inv.repeat_interleave(c // g, dim=-1)
+    mean_bc = gmean.repeat_interleave(c // g, dim=-1)
+    w = inv_c * p.scale.float()[None]
+    shift = p.bias.float()[None] - mean_bc * w
+    shape = (b,) + (1,) * (x.dim() - 2) + (c,)
+    xf = x.float() * w.reshape(shape)
+    xf.add_(shift.reshape(shape))
+    if act == "silu":
+        F.silu(xf, inplace=True)
+    return xf.to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,groups,act,eps", [
+    ((2, 8, 6, 32), 8, "silu", 1e-5), ((3, 20, 40), 4, None, 1e-6),
+    ((1, 5, 3, 2, 12), 12, "silu", 1e-6)])
+def test_gn_apply_plain_is_the_old_tail(shape, groups, act, eps, dtype):
+    """``gn_apply_torch`` (the tail ``group_norm`` hands the means to)
+    gives the old inline tail's bits, with SiLU on and off, for bf16 and
+    fp32 x."""
+    c = shape[-1]
+    x = torch.from_numpy(_np(12, *shape, scale=2.0, shift=0.7)).to(dtype)
+    norm = tlayers.Norm(c, device="cpu")
+    with torch.no_grad():
+        norm.scale.copy_(torch.from_numpy(_np(13, c, shift=1.0)))
+        norm.bias.copy_(torch.from_numpy(_np(14, c)))
+    xf = x.float().reshape(shape[0], -1, c)
+    mean_c, mean2_c = xf.mean(1), xf.square().mean(1)
+    want = _old_group_norm_tail(x, mean_c, mean2_c, norm, groups, eps, act)
+    got = cuda_norm.gn_apply_torch(x, mean_c, mean2_c, norm.scale.float(),
+                                   norm.bias.float(), num_groups=groups,
+                                   eps=eps, silu=act == "silu")
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert torch.equal(tlayers.group_norm(norm, x, num_groups=groups,
+                                          eps=eps, act=act), want)
+
+
 @pytest.mark.parametrize("variant", ["conv3x3", "conv3x3_hblock"])
 @pytest.mark.parametrize("cout,bias", [(128, True), (256, False)])
 def test_conv3x3_plain_matches_pallas(variant, cout, bias):
@@ -167,6 +212,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         lambda: cuda_norm.fused_layer_norm(x, g, g),
         lambda: cuda_norm.ln_linear(x, g, g, w),
         lambda: cuda_norm.gn_spatial_stats(x),
+        lambda: cuda_norm.gn_apply(x, g[None].expand(2, 128).contiguous(),
+                                   g[None].expand(2, 128).contiguous(), g, g,
+                                   num_groups=32),
         lambda: cuda_conv.conv3x3(x.reshape(2, 4, 4, 128),
                                   w.reshape(1, 1, 128, 128).expand(
                                       3, 3, 128, 128).contiguous()),

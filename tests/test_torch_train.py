@@ -579,6 +579,9 @@ def _function_cases():
     q, kk, v = _rn(2, 12, 2, 16), _rn(2, 9, 2, 16), _rn(2, 9, 2, 16)
     kr, vr = _rn(2, 5, 2, 16), _rn(2, 5, 2, 16)
     cq, ckv, cip = _rn(2, 12, 32), _rn(2, 7, 64), _rn(2, 4, 64)
+    # the channel means of xc, as group_sums hands them to #13
+    xf = xc.float().reshape(2, -1, 16)
+    m1, m2 = xf.mean(1), xf.square().mean(1)
     return {
         "ln_linear": (AG.ln_linear, N.ln_linear_torch,
                       (x, gam, bet, w, b), {}),
@@ -588,6 +591,12 @@ def _function_cases():
                              (x, gam, bet), {}),
         "gn_spatial_stats": (AG.gn_spatial_stats, N.gn_spatial_stats_torch,
                              (xc,), {}),
+        "gn_apply": (AG.gn_apply, N.gn_apply_torch,
+                     (xc, m1, m2, gam[:16], bet[:16]),
+                     {"num_groups": 4, "eps": 1e-6}),
+        "gn_apply_silu": (AG.gn_apply, N.gn_apply_torch,
+                          (xc, m1, m2, gam[:16], bet[:16]),
+                          {"num_groups": 4, "silu": True}),
         "flash_attention_gemm": (AG.flash_attention_gemm,
                                  A.flash_attention_gemm_torch, (qkv, kvr),
                                  {"heads": 2, "uncond_rows": 2}),
@@ -680,6 +689,9 @@ WRAPPERS = {
     "fused_layer_norm": lambda x: N.fused_layer_norm(
         x, x.new_ones(64).float(), x.new_zeros(64).float()),
     "gn_spatial_stats": lambda x: N.gn_spatial_stats(x),
+    "gn_apply": lambda x: N.gn_apply(
+        x, x.new_zeros(2, 64).float(), x.new_ones(2, 64).float(),
+        x.new_ones(64).float(), x.new_zeros(64).float(), num_groups=8),
     "conv3x3": lambda x: C.conv3x3(x.reshape(2, 2, 4, 64),
                                    _rn(3, 3, 64, 8)),
     "conv3x3_hblock": lambda x: C.conv3x3_hblock(
