@@ -46,7 +46,7 @@ from idmvton_tpu_torch.ops.attention import (
     concat_kv_attention, decoupled_ip_attention, sdpa,
 )
 from idmvton_tpu_torch.ops.cuda_attention import (
-    _fixed_shift, cross_attention_small_kv_supported,
+    cross_attention_small_kv_supported, fixed_shift_enabled,
     flash_attention_gemm_supported,
 )
 from idmvton_tpu_torch.ops.autograd import (
@@ -160,7 +160,7 @@ class SelfAttention(nn.Module):
                 uncond = b // 2
             out = flash_attention_gemm(narrow(qkv), narrow(kv_g),
                                        heads=heads, uncond_rows=uncond,
-                                       fixed_shift=_fixed_shift())
+                                       fixed_shift=fixed_shift_enabled())
             return _project_out(self, out.to(qkv.dtype), self.to_out)
         q = _split_heads(qkv[..., :inner], heads)
         k = _split_heads(qkv[..., inner:2 * inner], heads)

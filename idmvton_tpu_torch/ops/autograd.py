@@ -19,7 +19,7 @@ Three entries follow JAX's VJPs where they differ from the rule:
 ``gn_spatial_stats``'s backward is the closed form g1 + 2 x g2;
 ``flash_attention_gemm`` forces the exact online-max softmax in a
 differentiated forward (JAX ``_flash_gemm_fwd``: training logits are not
-bounded, so the fixed shift is off whatever ``_fixed_shift()`` says); and
+bounded, so the fixed shift is off whatever ``fixed_shift_enabled()`` says); and
 ``ln_linear_i8`` differentiates the bf16 product on the dequantized
 weight, with no gradient for the int8 weight or its scales.
 

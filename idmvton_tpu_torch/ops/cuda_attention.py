@@ -399,7 +399,7 @@ def flash_attention_gemm(qkv, kv_ref=None, *, heads: int,
                          fixed_shift: bool = True):
     """qkv (B, N, 3*H*D) bf16; kv_ref (B - uncond_rows, M, 2*H*D) bf16 or
     None. Returns (B, N, H*D) bf16. The model's site passes
-    ``fixed_shift=_fixed_shift()``, read at its call."""
+    ``fixed_shift=fixed_shift_enabled()``, read at its call."""
     out = _gemm_launch(qkv, kv_ref, heads, scale, sink_tokens, uncond_rows,
                        fixed_shift)
     flash_attention_gemm.launches += 1
@@ -422,7 +422,7 @@ _FIXED_SHIFT_FORCED_OFF = False
 _CALIBRATE_LOCK = threading.Lock()
 
 
-def _fixed_shift() -> bool:
+def fixed_shift_enabled() -> bool:
     """Fixed-shift softmax (the default): p = exp(min(logit, 60)) with no
     running max, exact for every logit <= 60. ``IDMVTON_FLASH_FIXED_SHIFT=0``
     or a failed calibration selects the online-max softmax. Read at every
@@ -436,7 +436,7 @@ def _gemm_attention(qkv, kv_ref, **kw):
     """``flash_attention_gemm`` in the switch's mode: the kernel on a CUDA
     tensor, its plain version on a CPU tensor."""
     fn = flash_attention_gemm if qkv.is_cuda else flash_attention_gemm_torch
-    return fn(qkv, kv_ref, fixed_shift=_fixed_shift(), **kw)
+    return fn(qkv, kv_ref, fixed_shift=fixed_shift_enabled(), **kw)
 
 
 def calibrate_fixed_shift(qkv, kv_ref=None, *, tol: float = 5e-3,
@@ -666,13 +666,19 @@ def cross_attention_small_kv(q, kv, kv_ip=None, *, heads: int,
 cross_attention_small_kv.launches = 0
 
 
+def cross_kernel_enabled() -> bool:
+    """The opt-in ``IDMVTON_CROSS_KERNEL=1``, read at every call of the
+    cross-attention site."""
+    return os.environ.get("IDMVTON_CROSS_KERNEL", "0") == "1"
+
+
 def cross_attention_small_kv_supported(inner: int, heads: int,
                                        s_kv: int) -> bool:
     """JAX ``cross_attention_small_kv_supported``: opt-in through
-    ``IDMVTON_CROSS_KERNEL=1`` (read at call time), H*D % 128 == 0, D
-    divides 128, at most 1024 context tokens; plus the kernel's 16-wide
-    head-dim MMA steps (D >= 16)."""
-    if os.environ.get("IDMVTON_CROSS_KERNEL", "0") != "1":
+    ``cross_kernel_enabled()``, H*D % 128 == 0, D divides 128, at most
+    1024 context tokens; plus the kernel's 16-wide head-dim MMA steps
+    (D >= 16)."""
+    if not cross_kernel_enabled():
         return False
     d = inner // heads
     return (inner % _LANE == 0 and d <= _LANE and _LANE % d == 0

@@ -1,7 +1,6 @@
 """Two ranks sharing one card: the parallel paths at full width against
-their single-process versions (the rank side of ``chip_smoke.py``'s phase
-14 and of ``tests/test_torch_cuda.py``, run through
-``parallel.dryrun.spawn``).
+their single-process versions (the rank side of the two-rank tests of
+``tests/test_torch_cuda.py``, run through ``parallel.dryrun.spawn``).
 
 NCCL refuses two ranks on one device, so these ranks take the backend
 their caller names: gloo, whose collectives take CUDA tensors (staged
@@ -24,9 +23,9 @@ kernels the code routes them to; it cannot show scaling.
 
 from __future__ import annotations
 
-import time
-
 import torch
+
+from idmvton_tpu_torch.ops.dispatch import launch_counters
 
 # random biases ~ N(0, AFFINE_STD^2), norm scales ~ 1 + N(0, AFFINE_STD^2)
 AFFINE_STD = 0.1
@@ -34,10 +33,6 @@ LATENT_HW = (128, 96)        # 1024 x 768 images (the tiny rehearsal: 16 x 16)
 TEXT_TOKENS = 77
 STEP_T = 999
 GUIDANCE = 2.0
-KERNELS = ("ln_linear", "fused_layer_norm", "gn_spatial_stats", "conv3x3",
-           "conv3x3_hblock", "flash_attention_gemm", "ln_linear_i8",
-           "cross_attention_small_kv", "conv3x3_padacc", "flash_attention",
-           "flash_attention_fused_qkv", "gn_apply")
 
 
 def random_affine_(module, seed: int):
@@ -62,30 +57,12 @@ def random_affine_(module, seed: int):
                 p.copy_(r.bfloat16())
 
 
-def kernel_wrappers() -> dict:
-    """{name: the kernel's wrapper} of every kernel, in ``KERNELS``' order;
-    each wrapper's ``launches`` counts its launches."""
-    from idmvton_tpu_torch.ops import cuda_attention, cuda_conv, cuda_norm
-    mods = (cuda_norm, cuda_conv, cuda_attention)
-    return {k: next(getattr(m, k) for m in mods if hasattr(m, k))
-            for k in KERNELS}
-
-
-def _sync():
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-
-
 def _counting(wrappers, fn):
-    """``fn()``'s result, seconds and the launches it made."""
+    """``fn()``'s result and the launches it made."""
     for w in wrappers.values():
         w.launches = 0
-    _sync()
-    t0 = time.perf_counter()
     out = fn()
-    _sync()
-    secs = time.perf_counter() - t0
-    return out, secs, {k: w.launches for k, w in wrappers.items()}
+    return out, {k: w.launches for k, w in wrappers.items()}
 
 
 def _readings(got, want):
@@ -145,8 +122,8 @@ def denoise_ranks(rank, world, seed: int, device="cuda", tiny=False,
                   dtype=torch.bfloat16):
     """One full-width denoise step single-process, under SP=2 and under
     TP=2 on this rank (see the module docstring). Returns the readings of
-    each parallel step against the single-process one, its launches and
-    seconds, and the peak memory. ``tiny``: the tiny UNets at 16 x 16
+    each parallel step against the single-process one and each step's
+    launches. ``tiny``: the tiny UNets at 16 x 16
     latents (on the CPU in fp32, ``device="cpu", dtype=torch.float32``:
     the parallel steps' arithmetic against the single-process one's)."""
     from idmvton_tpu_torch.models.unet import UNet
@@ -158,7 +135,7 @@ def denoise_ranks(rank, world, seed: int, device="cuda", tiny=False,
     from idmvton_tpu_torch.pipeline.tryon import TryonModels
     from idmvton_tpu_torch.models.layers import reset_parameters_
     dev = torch.device(device)
-    wrappers = kernel_wrappers()
+    wrappers = launch_counters()
     u_cfg, g_cfg = TryonModels.configs(tiny=tiny)[:2]
     gen = torch.Generator(device=dev).manual_seed(seed)
     out = {"backend": torch.distributed.get_backend()}
@@ -171,27 +148,23 @@ def denoise_ranks(rank, world, seed: int, device="cuda", tiny=False,
         inp = step_inputs(u_cfg, g_cfg, dev, seed + 1,
                           (16, 16) if tiny else LATENT_HW, dtype)
         mesh = make_mesh(data=1, model=world)
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats()
-        ref, out["single_s"], out["single"] = _counting(
+        ref, out["single"] = _counting(
             wrappers, lambda: guided_step(unet, garm, inp))
         sp = spatial_axis(mesh)
         local = {k: shard_latent(v, mesh) if k in ("unet_in", "garm_lat")
                  else v for k, v in inp.items()}
         for m in (unet, garm):
             shard_spatial(m, sp)
-        got, out["sp_s"], out["sp"] = _counting(
+        got, out["sp"] = _counting(
             wrappers, lambda: gather(guided_step(unet, garm, local), sp))
         out["sp_err"] = _readings(got, ref)
         for m in (unet, garm):
             shard_spatial(m, None)
         shard_unet_params(unet, mesh)
         shard_unet_params(garm, mesh)
-        got, out["tp_s"], out["tp"] = _counting(
+        got, out["tp"] = _counting(
             wrappers, lambda: guided_step(unet, garm, inp))
         out["tp_err"] = _readings(got, ref)
-        out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2**30
-                           if dev.type == "cuda" else None)
     return out
 
 
@@ -230,9 +203,7 @@ def all_ranks(rank, world, seed: int, device="cuda", tiny=False) -> dict:
     out = {}
     for name, fn in (("denoise", denoise_ranks), ("train", train_ranks),
                      ("pipeline", pipeline_ranks)):
-        t0 = time.perf_counter()
         out[name] = fn(rank, world, seed, device, tiny)
-        out[name]["wall_s"] = time.perf_counter() - t0
         if device == "cuda":
             torch.cuda.empty_cache()
     return out
@@ -298,7 +269,7 @@ def pipeline_ranks(rank, world, seed: int, device="cuda", tiny=False,
     """ViT-H through ``clip_vision_apply_pp`` on a (1, world) mesh, 2
     microbatches, against the same tower with its stack run sequentially
     over the same microbatch slices. Returns whether every output is equal
-    bit for bit, and both times."""
+    bit for bit."""
     from idmvton_tpu_torch.core.config import CLIPVisionConfig
     from idmvton_tpu_torch.models.clip import CLIPVision, clip_vision_apply_pp
     from idmvton_tpu_torch.models.layers import ACTIVATIONS, reset_parameters_
@@ -326,24 +297,10 @@ def pipeline_ranks(rank, world, seed: int, device="cuda", tiny=False,
 
     mesh = make_mesh(data=1, model=world)
     with torch.inference_mode():
-        want, seq_s, _ = _counting({}, lambda: tower(px,
-                                                     stack_fn=sequential))
-        got, pp_s, _ = _counting({}, lambda: clip_vision_apply_pp(
-            tower, px, mesh=mesh, n_micro=n_micro))
-    return {"equal": all(torch.equal(got[k], want[k]) for k in want),
-            "sequential_s": seq_s, "pipeline_s": pp_s,
-            "layers": cfg.num_layers, "hidden": cfg.hidden_size}
-
-
-def nccl_probe(rank, world):
-    """An all-reduce over NCCL with every rank on card 0."""
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    x = torch.ones(4, device=dev)
-    torch.distributed.all_reduce(x)
-    torch.cuda.synchronize()
-    return float(x[0])
+        want = tower(px, stack_fn=sequential)
+        got = clip_vision_apply_pp(tower, px, mesh=mesh, n_micro=n_micro)
+    return {"equal": all(torch.equal(got[k], want[k]) for k in want)}
 
 
 if __name__ == "__main__":
-    raise SystemExit("run through chip_smoke.py or tests/test_torch_cuda.py")
+    raise SystemExit("run through tests/test_torch_cuda.py")

@@ -20,15 +20,15 @@ key. Nothing in the step is copied from the host or waits for it:
 
 A graph bakes in what the step reads on the host while it is captured:
 shapes and dtypes, ``impl``, ``garment_cache``, ``guidance_scale`` /
-``guidance_rescale``, ``inpaint_blend``, and the three switches the kernel
-sites read at call time (``cuda_attention._fixed_shift()``,
-``IDMVTON_CROSS_KERNEL``, ``IDMVTON_CONV_PADACC``). Those form its key.
+``guidance_rescale``, ``inpaint_blend``, and the switches the kernel sites
+read at call time (``ops.dispatch.switches``). Those form its key.
 It also holds the addresses of the UNets' weights: ``weights_fingerprint``
 (every parameter's name, address, type and shape, and the version that
 ``quantize_unet_linears_int8`` and the loader bump) drops every graph of a
 pipeline when it changes, and the next step captures again.
 
-The kernel wrappers count launches in Python, which a replay does not run.
+The kernel wrappers (``ops.dispatch.launch_counters``) count launches in
+Python, which a replay does not run.
 ``CountedCapture`` saves the counters before a capture and restores them
 after it, so the capture counts nothing, and adds the capture's increments
 at every replay: a replayed step counts what an eager step counts.
@@ -39,25 +39,13 @@ counter ``graph.capture_ns`` sums the captures' nanoseconds.
 
 from __future__ import annotations
 
-import os
 from typing import Callable, Optional
 
 import torch
 
 from idmvton_tpu_torch.models.layers import weights_version
+from idmvton_tpu_torch.ops.dispatch import launch_counters, switches
 from idmvton_tpu_torch.utils import profiling
-
-
-def launch_counters() -> dict:
-    """Every kernel wrapper that counts its launches, by name."""
-    from idmvton_tpu_torch.ops import cuda_attention as A
-    from idmvton_tpu_torch.ops import cuda_conv as C
-    from idmvton_tpu_torch.ops import cuda_norm as N
-    fns = (N.ln_linear, N.fused_layer_norm, N.gn_spatial_stats, C.conv3x3,
-           C.conv3x3_hblock, A.flash_attention_gemm, N.ln_linear_i8,
-           A.cross_attention_small_kv, C.conv3x3_padacc, A.flash_attention,
-           A.flash_attention_fused_qkv, N.gn_apply)
-    return {f.__name__: f for f in fns}
 
 
 class CountedCapture:
@@ -84,17 +72,6 @@ class CountedCapture:
         for k, n in self.delta.items():
             if n:
                 self.counters[k].launches += n
-
-
-def switches() -> tuple:
-    """The call-time switches a kernel site reads: the fixed-shift softmax
-    (with ``calibrate_fixed_shift``'s force-off), the small-KV
-    cross-attention kernel and the padded-row conv."""
-    from idmvton_tpu_torch.ops.cuda_attention import _fixed_shift
-    from idmvton_tpu_torch.ops.cuda_conv import conv_padacc_enabled
-    return (_fixed_shift(),
-            os.environ.get("IDMVTON_CROSS_KERNEL", "0") == "1",
-            conv_padacc_enabled())
 
 
 def weights_fingerprint(*modules) -> tuple:

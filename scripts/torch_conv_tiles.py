@@ -66,11 +66,11 @@ def main():
             xp = F.pad(x, (0, 0, 1, 1, 1, 1))
             _build.call("idm_conv3x3_padacc", xp.data_ptr(), k.data_ptr(),
                         bias.data_ptr(), out.data_ptr(), b, h, w, cin, cout,
-                        plan.bm, plan.bn, plan.tiles_per_image, st)
+                        0, plan.bm, plan.bn, plan.tiles_per_image, st)
         else:
             _build.call("idm_conv3x3", x.data_ptr(), k.data_ptr(),
                         bias.data_ptr(), out.data_ptr(), b, h, w, cin, cout,
-                        plan.bn, plan.tile_h, plan.tile_w, st)
+                        0, plan.bn, plan.tile_h, plan.tile_w, st)
         return out
 
     with torch.inference_mode():

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of one DensePose detection train step goes, on one NVIDIA
-card: chip_smoke.py's phase 11 (the R-50-FPN at ``DensePoseConfig()`` /
-``DetectionTrainConfig()``, its stem scaled to mean-subtracted pixels,
-masked SGD, B = 2 images of 800x1088 with 3 persons each).
+card: the R-50-FPN at ``DensePoseConfig()`` / ``DetectionTrainConfig()``,
+its stem scaled to mean-subtracted pixels, masked SGD, B = 2 images of
+800x1088 with 3 persons each (``dp_train_batch``).
 
 Run from the root of a checkout: ``python3 scripts/torch_dp_train_profile.py
 [--steps N]``. It needs one CUDA card and nvcc, and imports nothing of JAX.
@@ -39,6 +39,39 @@ from torch_tiny_step_probe import GROUPS, grouped, profile_step  # noqa: E402
 TRAIN_GROUPS = (("cuDNN (conv backward)", ("cudnn", "dgrad", "wgrad",
                                            "xmma", "conv2d")),
                 ("softmax backward", ("softmax",))) + GROUPS
+
+# the DensePose R-50-FPN trained at its served config: B images of
+# DP_TRAIN_HW with G persons each (P annotated points, an M x M mask)
+DP_TRAIN_HW = (800, 1088)
+DP_TRAIN_B, DP_TRAIN_G, DP_TRAIN_P, DP_TRAIN_M = 2, 3, 128, 56
+
+
+def dp_train_batch(dev, seed):
+    """DP_TRAIN_B mean-subtracted BGR images and their ground truth, drawn
+    on the card: G person boxes an image, P points in each (fine labels
+    0-24, U / V in [0, 1)), an elliptic M x M mask each."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    (h, w), b, n, p, m = DP_TRAIN_HW, DP_TRAIN_B, DP_TRAIN_G, DP_TRAIN_P, \
+        DP_TRAIN_M
+    u = lambda *shape: torch.rand(shape, generator=g, device=dev)
+    mean = torch.tensor([103.530, 116.280, 123.675], device=dev)
+    images = u(b, h, w, 3) * 255 - mean
+    bw, bh = (0.15 + 0.25 * u(b, n)) * w, (0.3 + 0.4 * u(b, n)) * h
+    x1, y1 = u(b, n) * (w - bw), u(b, n) * (h - bh)
+    yy, xx = torch.meshgrid(torch.linspace(-1, 1, m, device=dev),
+                            torch.linspace(-1, 1, m, device=dev),
+                            indexing="ij")
+    radius = 0.6 + 0.35 * u(b, n, 1, 1)
+    gts = {"boxes": torch.stack([x1, y1, x1 + bw, y1 + bh], -1),
+           "valid": torch.ones(b, n, dtype=torch.bool, device=dev),
+           "dp_x": x1[..., None] + u(b, n, p) * bw[..., None],
+           "dp_y": y1[..., None] + u(b, n, p) * bh[..., None],
+           "dp_i": torch.randint(0, 25, (b, n, p), generator=g, device=dev),
+           "dp_u": u(b, n, p), "dp_v": u(b, n, p),
+           "dp_pt_valid": torch.ones(b, n, p, dtype=torch.bool, device=dev),
+           "dp_mask": (xx ** 2 + yy ** 2)[None, None] < radius ** 2}
+    return images, gts
 
 
 def mean_ms(fn, reps=3):
@@ -82,7 +115,7 @@ def main():
     params = dt.detection_params(model)
     tx = dt.make_detection_optimizer(tcfg, params)
     state = tx.init(params)
-    images, gts = smoke.dp_train_batch(dev, smoke.SEED + 61)
+    images, gts = dp_train_batch(dev, smoke.SEED + 61)
     gen = torch.Generator(device=dev).manual_seed(smoke.SEED + 63)
     step = dt.make_detection_train_step(tcfg, tx, impl="cuda")
     res = {"card": card, "steps": []}

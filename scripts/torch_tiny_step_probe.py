@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Fault probe and profile of the PyTorch port's tiny try-on step on one
 NVIDIA card: the inference CLI's ``--tiny`` mode (``UNetConfig.tiny``) at
-768x1024, batch 2, 30 steps, the operating point of ``chip_smoke.py``'s
-last phase.
+768x1024, batch 2, 30 steps, the operating point of
+``tests/test_torch_cuda_full.py``'s tiny CLI test (``tests/torch_card.py``).
 
 Run from the root of a checkout: ``python3 scripts/torch_tiny_step_probe.py``.
 It needs one CUDA card and nvcc, and imports nothing of JAX.
 
 The tiny models get random biases and norm affines from the seed
-(``chip_smoke.random_affine_``), as chip_smoke's tiny phase gives them.
+(``parallel.onecard.random_affine_``), as that test gives them.
 
 1. Runs the tiny CLI batch (``cli.infer.run``) three times, wall time each.
 2. Times one tiny denoise step (``impl="cuda"``) unprofiled, the mean of 5
@@ -17,7 +17,7 @@ The tiny models get random biases and norm affines from the seed
    intervals in the trace, and the idle share is 1 - busy / unprofiled
    wall. The trace goes to ``chiprun_out/tiny_step_trace.json``.
 3. Reads the tiny step's cuda-vs-torch guided noise prediction
-   (``chip_smoke.step_readings``) clean and with a fault planted where
+   (``torch_card.step_readings``) clean and with a fault planted where
    ``flash_attention`` launches kernel #9 (more than 256 keys): its output
    x1.02 and x1.05, and the garment half of the concatenated KV dropped;
    and where the fused LayerNorm sites launch ``ln_linear`` (kernel #1):
@@ -39,8 +39,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tests"))
 
 import chip_smoke as smoke  # noqa: E402
+import torch_card as card  # noqa: E402
 
 OUT = ROOT / "chiprun_out"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -146,6 +148,7 @@ def main():
     from idmvton_tpu_torch.models import attention as site
     from idmvton_tpu_torch.ops import _build
     from idmvton_tpu_torch.ops import cuda_attention as A
+    from idmvton_tpu_torch.parallel.onecard import random_affine_
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"],
@@ -162,17 +165,17 @@ def main():
                                  "--device", "cuda"])
         tiny = infer.load_models(args, torch.bfloat16)
         for i, module in enumerate(tiny.components().values()):
-            smoke.random_affine_(module, smoke.SEED + 30 + i)
+            random_affine_(module, card.SEED + 30 + i)
         pipe, tok1, tok2, gen = infer.build(args, tiny)
-        loader = BatchLoader(smoke.synthetic_batch(smoke.BATCH, smoke.SEED + 2),
+        loader = BatchLoader(card.synthetic_batch(card.BATCH, card.SEED + 2),
                              args.test_batch_size)
 
         def batch():
             t0 = time.perf_counter()
             out = list(infer.run(args, pipe, tiny, loader, tok1, tok2, gen))
             secs = time.perf_counter() - t0
-            if len(out) != 1 or out[0][1].shape != (smoke.BATCH, smoke.HEIGHT,
-                                                    smoke.WIDTH, 3):
+            if len(out) != 1 or out[0][1].shape != (card.BATCH, card.HEIGHT,
+                                                    card.WIDTH, 3):
                 smoke.fail("tiny CLI batch: unexpected output")
             res["batch_s"].append(secs)
             smoke.log(f"tiny CLI batch: {secs:.3f} s")
@@ -180,19 +183,19 @@ def main():
         for _ in range(3):
             batch()
 
-        g = torch.Generator(device=dev).manual_seed(smoke.SEED + 1)
-        inputs = smoke.make_inputs(tiny, dev, g)
+        g = torch.Generator(device=dev).manual_seed(card.SEED + 1)
+        inputs = card.make_inputs(tiny, dev, g)
         cond = pipe.staged_encoder()(g, inputs)
         b, h, w, _ = inputs["person"].shape
         ds = tiny.vae_cfg.downscale
         lat_shape = (b, h // ds, w // ds, tiny.vae_cfg.latent_channels)
         lat = torch.randn(lat_shape, generator=g, device=dev).bfloat16()
         noise = torch.randn(lat_shape, generator=g, device=dev).bfloat16()
-        ts, prev_ts = pipe.scheduler.timesteps_and_prev(smoke.STEPS)
+        ts, prev_ts = pipe.scheduler.timesteps_and_prev(card.STEPS)
 
         def step():
             return pipe.denoise_step(cond, lat, int(ts[0]), int(prev_ts[0]),
-                                     guidance_scale=smoke.GUIDANCE,
+                                     guidance_scale=card.GUIDANCE,
                                      step_noise=noise, impl="cuda")
 
         for _ in range(2):
@@ -245,9 +248,9 @@ def main():
             for name, fn in patch.items():
                 setattr(site if name == "ln_linear" else A, name, fn)
             try:
-                r = smoke.step_readings(
+                r = card.step_readings(
                     pipe, inputs,
-                    torch.Generator(device=dev).manual_seed(smoke.SEED + 3),
+                    torch.Generator(device=dev).manual_seed(card.SEED + 3),
                     f"tiny [{label}]")
             finally:
                 A.flash_attention, A.flash_attention_concat_kv = fa, fa_cat
@@ -259,7 +262,7 @@ def main():
                       f"max rel {r['noise_pred'][0]:.3e} mean rel "
                       f"{r['noise_pred'][1]:.3e}; latent max rel "
                       f"{r['latent'][0]:.3e} (bounds "
-                      f"{smoke.TINY_STEP_TOLS['noise_pred']})")
+                      f"{card.TINY_STEP_TOLS['noise_pred']})")
 
         for _ in range(2):
             batch()

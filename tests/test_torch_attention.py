@@ -198,7 +198,7 @@ def test_self_attention_site_reads_the_fixed_shift_switch(
     out = mod(x, garment_feat=torch.from_numpy(_np(52, 1, 20, 128)),
               garment_uncond_zero=True, impl="cuda")
     assert seen == [want] and out.shape == (2, 20, 128)
-    assert A._fixed_shift() is want
+    assert A.fixed_shift_enabled() is want
 
 
 def _hot_qkv(n=128, d=128):
@@ -241,13 +241,13 @@ def test_calibrate_fixed_shift_forces_and_clears_the_online_softmax(
     try:
         rep = A.calibrate_fixed_shift(torch.from_numpy(hot), heads=1)
         assert not rep["fixed_shift"] and not jrep["fixed_shift"]
-        assert not A._fixed_shift()
+        assert not A.fixed_shift_enabled()
         np.testing.assert_allclose(rep["max_error"], jrep["max_error"],
                                    rtol=1e-3)
         clean = torch.from_numpy(_np(56, 1, 128, 384))
         rep = A.calibrate_fixed_shift(clean, heads=2)
         assert rep["fixed_shift"] and rep["max_error"] < 5e-3
-        assert A._fixed_shift()
+        assert A.fixed_shift_enabled()
         assert A.os.environ["IDMVTON_FLASH_FIXED_SHIFT"] == "1"
     finally:
         jpa.calibrate_fixed_shift(jnp.asarray(_np(56, 1, 128, 384)), heads=2)

@@ -279,7 +279,7 @@ def test_calibration_hot_tryon_down_site(tmp_path, switch):
     want = _jax_report(jm)
 
     models = tckpt.from_diffusers(hot, torch.float32, device="cpu")
-    assert not TA._fixed_shift(), \
+    assert not TA.fixed_shift_enabled(), \
         "a hot checkpoint must force the online-max softmax"
     rep = models.calibration
     assert rep["fixed_shift"] is False and rep["max_error"] > 5e-3
@@ -288,7 +288,7 @@ def test_calibration_hot_tryon_down_site(tmp_path, switch):
     assert want["fixed_shift"] is False
 
     models = tckpt.from_diffusers(clean, torch.float32, device="cpu")
-    assert TA._fixed_shift() and models.calibration["fixed_shift"]
+    assert TA.fixed_shift_enabled() and models.calibration["fixed_shift"]
     assert models.calibration["site_errors"].keys() == \
         want["site_errors"].keys()
 
@@ -310,7 +310,7 @@ def test_calibration_hot_garment_mid_block(tmp_path, switch):
     tckpt.save_pipeline(str(tmp_path), port_models(_np(jm), torch.float32,
                                                    cfgs))
     models = tckpt.load_pipeline(str(tmp_path), torch.float32, device="cpu")
-    assert not TA._fixed_shift(), \
+    assert not TA.fixed_shift_enabled(), \
         "garment-tower hot logits must force the online-max softmax"
     rep = models.calibration
     assert rep["worst_site"] == want["worst_site"] == "garm.mid"
@@ -320,7 +320,7 @@ def test_calibration_hot_garment_mid_block(tmp_path, switch):
         TA._FIXED_SHIFT_FORCED_OFF = False
         skipped = tckpt.load_pipeline(str(tmp_path), torch.float32,
                                       device="cpu")
-        assert skipped.calibration is None and TA._fixed_shift()
+        assert skipped.calibration is None and TA.fixed_shift_enabled()
 
 
 def test_load_profile_tiny(capsys, switch):

@@ -11,7 +11,9 @@ launches what an eager one does and gives its images.
 
 Marked ``cuda``: each test skips without a card. This file imports no JAX,
 so it also runs on a host that has none:
-``python -m pytest --noconftest -q tests/test_torch_cuda.py``.
+``python -m pytest --noconftest -q tests/test_torch_cuda.py``. The
+full-width paths here keep their launches under their names
+(``torch_card.record``) for ``chip_smoke.py``'s kernels line.
 
 Tolerances: both sides take the same bf16 inputs and accumulate in fp32;
 they differ in summation order and in where bf16 rounds (the plain
@@ -43,6 +45,7 @@ order, max |diff| <= 1e-4 * max |plain| (K up to 9 * 2560 fp32 terms).
 import pytest
 import torch
 
+import torch_card
 from idmvton_tpu_torch.ops import cuda_attention, cuda_conv, cuda_norm
 from idmvton_tpu_torch.ops.quant import quantize_kernel_int8
 
@@ -105,7 +108,10 @@ def test_ln_linear_kernel(dev, m, c, n, geglu, bias):
 
 # every ln_linear shape of the path: TryonNet (B = 4) and GarmentNet (B =
 # 2) at 768x1024 (to_qkv, to_q, GEGLU at the 640 and 1280 levels), the tiny
-# UNet's 128-wide level, and ragged M (a 128-row block past the rows)
+# UNet's 128-wide level, and ragged M (a 128-row block past the rows); a
+# TP=2 rank's TryonNet (to_qkv, to_q and GEGLU at the 1280-wide level, GEGLU
+# at the 640-wide one) and an SP=2 rank's rows (TryonNet's to_qkv, to_q and
+# GEGLU, GarmentNet's to_q and GEGLU, at both levels)
 LN_PATH = [((4, 3072), 640, 1920, False), ((4, 3072), 640, 640, False),
            ((4, 3072), 640, 2560, True), ((4, 768), 1280, 3840, False),
            ((4, 768), 1280, 1280, False), ((4, 768), 1280, 5120, True),
@@ -113,7 +119,14 @@ LN_PATH = [((4, 3072), 640, 1920, False), ((4, 3072), 640, 640, False),
            ((2, 768), 1280, 1280, False), ((2, 768), 1280, 5120, True),
            ((4, 768), 128, 384, False), ((4, 768), 128, 128, False),
            ((4, 768), 128, 512, True), ((2, 768), 128, 512, True),
-           ((3, 1000), 640, 1920, False), ((1, 1500), 1280, 5120, True)]
+           ((3, 1000), 640, 1920, False), ((1, 1500), 1280, 5120, True),
+           ((4, 768), 1280, 1920, False), ((4, 768), 1280, 640, False),
+           ((4, 768), 1280, 2560, True), ((4, 3072), 640, 1280, True),
+           ((4, 1536), 640, 1920, False), ((4, 1536), 640, 640, False),
+           ((4, 1536), 640, 2560, True), ((4, 384), 1280, 3840, False),
+           ((4, 384), 1280, 1280, False), ((4, 384), 1280, 5120, True),
+           ((2, 1536), 640, 640, False), ((2, 1536), 640, 2560, True),
+           ((2, 384), 1280, 1280, False), ((2, 384), 1280, 5120, True)]
 
 
 @pytest.mark.parametrize("bias", [None, "bf16"])
@@ -141,7 +154,8 @@ def test_ln_linear_every_tile(dev, tile, geglu):
 
 
 @pytest.mark.parametrize("rows,c", [(3, 128), (1000, 640), (77, 1280),
-                                    (6144, 640), (1536, 1280)])
+                                    (6144, 640), (1536, 1280), (3072, 640),
+                                    (768, 1280)])
 def test_fused_layer_norm_kernel(dev, rows, c):
     g = torch.Generator(device=dev).manual_seed(1)
     x = _randn(g, rows, c, dev=dev, scale=2.0) - 0.5
@@ -155,7 +169,12 @@ def test_fused_layer_norm_kernel(dev, rows, c):
 
 @pytest.mark.parametrize("shape,dtype", [
     ((2, 9, 13, 128), torch.bfloat16), ((3, 300, 320), torch.float32),
-    ((1, 64, 48, 2560), torch.bfloat16), ((2, 5, 7, 10), torch.float32)])
+    ((1, 64, 48, 2560), torch.bfloat16), ((2, 5, 7, 10), torch.float32),
+    # the path's: TryonNet's 320- and 2560-wide levels, the VAE encode's
+    # largest input, an SP=2 rank's 64 of 128 rows
+    ((4, 128, 96, 320), torch.bfloat16), ((4, 32, 24, 2560), torch.bfloat16),
+    ((6, 1024, 768, 128), torch.bfloat16),
+    ((4, 64, 96, 320), torch.bfloat16)])
 def test_gn_stats_kernel(dev, shape, dtype):
     g = torch.Generator(device=dev).manual_seed(2)
     x = _randn(g, *shape, dev=dev, dtype=dtype) + 0.3
@@ -238,13 +257,14 @@ def test_gn_apply_kernel_unet_shapes(dev, shape, silu):
     _assert_gn_apply_close(got, want, x, m1, m2, sc, bi, 32, 1e-5)
 
 
+@pytest.mark.parametrize("silu", [True, False])
 @pytest.mark.parametrize("shape,dtype,groups", GN_APPLY_OTHER)
-def test_gn_apply_kernel_other_shapes(dev, shape, dtype, groups):
+def test_gn_apply_kernel_other_shapes(dev, shape, dtype, groups, silu):
     x, m1, m2, sc, bi = _gn_apply_case(24, shape, dtype, dev, groups)
     got = cuda_norm.gn_apply(x, m1, m2, sc, bi, num_groups=groups, eps=1e-6,
-                             silu=True)
+                             silu=silu)
     want = cuda_norm.gn_apply_torch(x, m1, m2, sc, bi, num_groups=groups,
-                                    eps=1e-6, silu=True)
+                                    eps=1e-6, silu=silu)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == x.shape
     _assert_gn_apply_close(got, want, x, m1, m2, sc, bi, groups, 1e-6)
@@ -271,7 +291,14 @@ def test_gn_apply_kernel_sp_rank_rows(dev):
     # 16 x 8 tile, a ragged last K chunk (Cin 160)
     (1, 16, 24, 320, 320, True), (1, 16, 24, 960, 320, True),
     (1, 8, 24, 2560, 1280, True), (4, 32, 24, 1280, 1280, True),
-    (2, 19, 27, 320, 640, True), (1, 12, 16, 160, 128, False)])
+    (2, 19, 27, 320, 640, True), (1, 12, 16, 160, 128, False),
+    # the path's: TryonNet's 320- and 640-wide levels and the 960 -> 320 skip
+    # conv, an SP=2 rank's rows with their two halo rows, the VAE's
+    # 1024x768 and 512x384 levels (the hblock sites)
+    (4, 128, 96, 320, 320, True), (4, 64, 48, 640, 640, True),
+    (4, 128, 96, 960, 320, True), (4, 66, 96, 320, 320, True),
+    (4, 18, 24, 1280, 1280, True), (6, 1024, 768, 128, 128, True),
+    (2, 512, 384, 512, 256, True)])
 def test_conv3x3_kernel(dev, b, h, w, cin, cout, bias):
     g = torch.Generator(device=dev).manual_seed(3)
     x = _randn(g, b, h, w, cin, dev=dev)
@@ -319,29 +346,47 @@ def test_conv3x3_kernel_fp32(dev, b, h, w, cin, cout):
     assert _rel_err(got_p, want_r) <= F32_TOL
 
 
-def test_vae_decode_fp32_runs_the_conv_kernels(dev):
+@pytest.mark.parametrize("size", ["tiny", "full"])
+def test_vae_decode_fp32_runs_the_conv_kernels(dev, size):
     """VAEConfig.force_upcast: the decode runs in fp32 through the conv and
-    GroupNorm statistics kernels, against the plain decode of the same
-    module on the CPU (each conv rounds its input to bf16: the bf16
-    bound)."""
+    GroupNorm statistics kernels at every site the bf16 decode of the same
+    latent runs them (the fp32 activations' size moves sites between
+    conv3x3 and conv3x3_hblock), against the plain decode of the same
+    module on the CPU (each conv rounds its input to bf16: the bf16 bound);
+    the tiny VAE and the full one on a 768x1024 request's latents."""
     import copy
     import dataclasses
     from idmvton_tpu_torch.core.config import VAEConfig
     from idmvton_tpu_torch.models.layers import reset_parameters_
     from idmvton_tpu_torch.models.vae import VAE
-    cfg = dataclasses.replace(VAEConfig.tiny(), force_upcast=True)
+    from idmvton_tpu_torch.ops.dispatch import launch_counters
+    base = VAEConfig.tiny() if size == "tiny" else VAEConfig()
+    cfg = dataclasses.replace(base, force_upcast=True)
     vae = VAE(cfg, dtype=torch.bfloat16, device=dev)
     reset_parameters_(vae, torch.Generator(device=dev).manual_seed(15))
     g = torch.Generator(device=dev).manual_seed(16)
-    z = _randn(g, 2, 32, 24, cfg.latent_channels, dev=dev)
-    counts = (cuda_conv.conv3x3.launches,
-              cuda_norm.gn_spatial_stats.launches, cuda_norm.gn_apply.launches)
-    got = vae.decode(z)
-    torch.cuda.synchronize()
-    assert cuda_conv.conv3x3.launches > counts[0]
-    assert cuda_norm.gn_spatial_stats.launches > counts[1]
-    assert (cuda_norm.gn_apply.launches - counts[2]
-            == cuda_norm.gn_spatial_stats.launches - counts[1])
+    lh, lw = (32, 24) if size == "tiny" else (128, 96)
+    z = _randn(g, 2, lh, lw, cfg.latent_channels, dev=dev)
+    counters = launch_counters()
+    launched = {}
+    for upcast in (False, True):
+        vae.cfg = dataclasses.replace(cfg, force_upcast=upcast)
+        before = {k: f.launches for k, f in counters.items()}
+        got = vae.decode(z)
+        torch.cuda.synchronize()
+        launched[upcast] = {k: f.launches - before[k]
+                            for k, f in counters.items()
+                            if f.launches != before[k]}
+    counts, bf16 = launched[True], launched[False]
+    assert set(counts) <= {"conv3x3", "conv3x3_hblock", "gn_spatial_stats",
+                           "gn_apply"}, counts
+    assert counts["conv3x3"] > 0 and counts["gn_spatial_stats"] > 0
+    assert counts["gn_apply"] == counts["gn_spatial_stats"] \
+        == bf16["gn_spatial_stats"]
+    convs = lambda c: c.get("conv3x3", 0) + c.get("conv3x3_hblock", 0)
+    assert convs(counts) == convs(bf16), (counts, bf16)
+    if size == "full":
+        torch_card.record("decode_fp32", counts)
     want = copy.deepcopy(vae).cpu().decode(z.cpu())
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert _rel_err(got.cpu(), want) <= BF16_TOL
@@ -368,13 +413,15 @@ def test_flash_attention_gemm_kernel(dev, d, garment, uncond, sink, fixed):
 
 
 # flash_attention_gemm's four path shapes at full width (TryonNet and
-# GarmentNet at the 640 and 1280 levels), every row uncond, and the tiny
-# UNet's 128-wide level (8 heads of 16)
+# GarmentNet at the 640 and 1280 levels), every row uncond, the tiny
+# UNet's 128-wide level (8 heads of 16) and a TP=2 rank's TryonNet at the
+# 1280-wide level (10 heads)
 @pytest.mark.parametrize("fixed", [True, False])
 @pytest.mark.parametrize("b,n,heads,d,garment,uncond", [
     (4, 3072, 10, 64, True, 2), (4, 768, 20, 64, True, 2),
     (2, 3072, 10, 64, False, 0), (2, 768, 20, 64, False, 0),
-    (4, 768, 20, 64, True, 4), (4, 768, 8, 16, True, 2)])
+    (4, 768, 20, 64, True, 4), (4, 768, 8, 16, True, 2),
+    (4, 768, 10, 64, True, 2)])
 def test_flash_attention_gemm_path_shapes(dev, b, n, heads, d, garment,
                                           uncond, fixed):
     g = torch.Generator(device=dev).manual_seed(9)
@@ -418,7 +465,7 @@ def test_fixed_shift_switch_reaches_the_kernel(dev, monkeypatch):
         got = cuda_attention._gemm_attention(qkv, None, heads=1)
         assert _rel_err(got, want) <= BF16_TOL
     rep = cuda_attention.calibrate_fixed_shift(qkv, heads=1)
-    assert not rep["fixed_shift"] and not cuda_attention._fixed_shift()
+    assert not rep["fixed_shift"] and not cuda_attention.fixed_shift_enabled()
     got = cuda_attention._gemm_attention(qkv, None, heads=1)
     assert _rel_err(got, exact) <= BF16_TOL
 
@@ -465,9 +512,11 @@ def test_attention_kernel_every_tile(dev, d, tile):
 
 @pytest.mark.parametrize("scale", [None, -0.2])
 @pytest.mark.parametrize("b,sq,heads,d,m", [
-    (4, 3072, 4, 16, 3072), (2, 3072, 4, 16, 0)])
+    (4, 3072, 4, 16, 3072), (2, 3072, 4, 16, 0), (4, 3072, 10, 64, 3072),
+    (4, 3072, 5, 64, 3072)])
 def test_flash_attention_tiny_path_shapes(dev, b, sq, heads, d, m, scale):
-    """The tiny UNet's 64-wide level: the split heads of a to_qkv output
+    """The tiny UNet's 64-wide level, and TryonNet's 640-wide level at SDXL
+    width and on a TP=2 rank (5 heads): the split heads of a to_qkv output
     over own then garment keys (flash_attention_concat_kv) and over their
     own (self-attention), sliced from a longer buffer (a batch stride that
     is not S * row stride); a negative scale takes the kernel's generic
@@ -502,7 +551,12 @@ def test_flash_attention_tiny_path_shapes(dev, b, sq, heads, d, m, scale):
     # widths, an fp32 bias
     (300, 128, 384, False, "fp32"), (129, 1280, 1280, False, True),
     (257, 640, 2560, True, True), (131, 1280, 5120, True, "fp32"),
-    (12, 640, 1920, False, False)])
+    (12, 640, 1920, False, False),
+    # the variant path's rows: TryonNet's to_qkv and GEGLU at both levels
+    # (B = 4), GarmentNet's GEGLU (B = 2)
+    (6144, 640, 1920, False, False), (1536, 1280, 3840, False, False),
+    (6144, 640, 2560, True, True), (1536, 1280, 5120, True, True),
+    (3072, 640, 2560, True, True), (768, 1280, 5120, True, True)])
 def test_ln_linear_i8_kernel(dev, m, c, n, geglu, bias):
     from idmvton_tpu_torch.models.attention import _ln_proj
     from idmvton_tpu_torch.models.layers import (
@@ -659,7 +713,11 @@ def test_cross_attention_small_kv_path_shapes(dev, b, n, heads, ip):
     # 4, an image whose last 128-position tile runs past it (9 * 15 = 135),
     # a ragged last K chunk (Cin 160)
     (1, 16, 24, 960, 320, True), (2, 9, 13, 2560, 256, True),
-    (4, 32, 24, 1280, 1280, True), (1, 12, 16, 160, 128, False)])
+    (4, 32, 24, 1280, 1280, True), (1, 12, 16, 160, 128, False),
+    # the variant path's: TryonNet's 320- and 640-wide levels, the 960 ->
+    # 320 skip conv, the VAE's 128x96 level
+    (4, 128, 96, 320, 320, True), (4, 64, 48, 640, 640, True),
+    (4, 128, 96, 960, 320, True), (6, 128, 96, 512, 512, True)])
 def test_conv3x3_padacc_kernel(dev, b, h, w, cin, cout, bias):
     g = torch.Generator(device=dev).manual_seed(7)
     x = _randn(g, b, h, w, cin, dev=dev)
@@ -695,18 +753,51 @@ def test_flash_attention_kernel(dev, d, sq, skv):
     assert _rel_err(got, want) <= BF16_TOL
 
 
+@pytest.mark.parametrize("b,heads", [(2, 4), (4, 4), (4, 10)])
 @pytest.mark.parametrize("d", [8, 16, 64, 128])
 @pytest.mark.parametrize("st,s_own", [(384, 300), (6144, 3072), (70, 70)])
-def test_flash_attention_fused_qkv_kernel(dev, d, st, s_own):
+def test_flash_attention_fused_qkv_kernel(dev, d, st, s_own, b, heads):
     g = torch.Generator(device=dev).manual_seed(7)
-    qkv = _randn(g, 2, st, 3, 4, d, dev=dev, scale=1.5)
+    qkv = _randn(g, b, st, 3, heads, d, dev=dev, scale=1.5)
     before = cuda_attention.flash_attention_fused_qkv.launches
     got = cuda_attention.flash_attention_fused_qkv(qkv, s_own, scale=0.3)
     want = cuda_attention.flash_attention_fused_qkv_torch(qkv, s_own,
                                                           scale=0.3)
     torch.cuda.synchronize()
-    assert got.shape == (2, s_own, 4, d)
+    assert got.shape == (b, s_own, heads, d)
     assert cuda_attention.flash_attention_fused_qkv.launches == before + 1
+    assert _rel_err(got, want) <= BF16_TOL
+
+
+# an SP=2 rank's SelfAttention (parallel/sp.py): its nq local queries, a
+# view of its to_qkv output, over the n own keys and values gathered from
+# every rank (contiguous (B, n, H, D)) and, for TryonNet (``uncond``
+# given), the gathered garment K/V as the model passes it: a view of the
+# (B, n, 2*H*D) garment GEMM output whose leading ``uncond`` rows are zeros
+@pytest.mark.parametrize("b,nq,n,heads,uncond", [
+    (4, 1536, 3072, 10, 2), (4, 384, 768, 20, 2), (2, 1536, 3072, 10, None),
+    (2, 384, 768, 20, None)])
+def test_flash_attention_sp_rank_shapes(dev, b, nq, n, heads, uncond):
+    g = torch.Generator(device=dev).manual_seed(12)
+    d = 64
+    hd = heads * d
+    q = _randn(g, b, nq, 3 * hd, dev=dev)[..., :hd].reshape(b, nq, heads, d)
+    k, v = (_randn(g, b, n, heads, d, dev=dev) for _ in range(2))
+    before = cuda_attention.flash_attention.launches
+    if uncond is None:
+        got = cuda_attention.flash_attention(q, k, v)
+        want = cuda_attention.flash_attention_torch(q, k, v)
+    else:
+        kvg = torch.cat([torch.zeros(uncond, n, 2 * hd, device=dev,
+                                     dtype=torch.bfloat16),
+                         _randn(g, b - uncond, n, 2 * hd, dev=dev)])
+        kg = kvg[..., :hd].reshape(b, n, heads, d)
+        vg = kvg[..., hd:].reshape(b, n, heads, d)
+        got = cuda_attention.flash_attention_concat_kv(q, k, v, kg, vg)
+        want = cuda_attention.flash_attention_concat_kv_torch(q, k, v, kg, vg)
+    torch.cuda.synchronize()
+    assert got.shape == (b, nq, heads, d)
+    assert cuda_attention.flash_attention.launches == before + 1
     assert _rel_err(got, want) <= BF16_TOL
 
 
@@ -890,7 +981,7 @@ def test_replayed_request_counts_equal_eager(dev):
     """jit_generate (every step but the first replayed) and generate from
     generators of one seed: the same images and, per kernel, the same
     launch counts; a second request replays every step."""
-    from idmvton_tpu_torch.pipeline.graph import launch_counters
+    from idmvton_tpu_torch.ops.dispatch import launch_counters
     pipe = _step_pipeline(dev, "tiny")
     inputs = _step_inputs(pipe, dev)
     counters = launch_counters()
@@ -910,6 +1001,7 @@ def test_replayed_request_counts_equal_eager(dev):
         assert torch.equal(a, b)
     assert out["jit"][1] == out["eager"][1]
     assert out["jit"][1]["conv3x3"] > 0
+    torch_card.record("graph_tiny", out["jit"][1])
 
 
 # ---------------------------------------------------------------------------
@@ -964,7 +1056,7 @@ def test_calibration_flips_the_switch_and_the_next_capture(dev,
     inputs = _step_inputs(pipe, dev)
     with torch.inference_mode():
         clean = calibrate_attention_softmax(models)
-        assert clean["fixed_shift"] and cuda_attention._fixed_shift()
+        assert clean["fixed_shift"] and cuda_attention.fixed_shift_enabled()
         assert set(clean["site_errors"]) == {"unet.down", "unet.mid",
                                              "garm.down", "garm.mid"}
         first, _, _ = _replayed_vs_eager(pipe, inputs)
@@ -982,7 +1074,7 @@ def test_calibration_flips_the_switch_and_the_next_capture(dev,
         # two launches a site, two more for the worst one
         assert cuda_attention.flash_attention_gemm.launches - launches == 10
         assert hot["worst_site"] == "unet.down" and not hot["fixed_shift"]
-        assert not cuda_attention._fixed_shift()
+        assert not cuda_attention.fixed_shift_enabled()
         steps, got, (want, _) = _replayed_vs_eager(pipe, inputs)
         assert steps is not first and torch.equal(got, want)
         (key,) = [k for k, v in pipe.graphs.graphs.items() if v is steps]
@@ -1042,7 +1134,7 @@ def test_fp32_tiny_step_reaches_the_kernels(dev):
     from idmvton_tpu_torch.diffusion.scheduler import (
         classifier_free_guidance,
     )
-    from idmvton_tpu_torch.pipeline.graph import launch_counters
+    from idmvton_tpu_torch.ops.dispatch import launch_counters
     from idmvton_tpu_torch.pipeline.tryon import TryonModels, TryonPipeline
     models = TryonModels.init(0, tiny=True, device=dev, dtype=torch.float32)
     pipe = TryonPipeline(models)
@@ -1099,20 +1191,34 @@ PREPROCESS_CONVS = [
     (1, 272, 200, 256, 256), (1, 136, 100, 256, 256), (1, 68, 50, 256, 256),
     (1, 34, 25, 256, 256), (1, 17, 13, 256, 256),
     (20, 28, 28, 256, 512), (20, 28, 28, 512, 512)]
+# the other fp32 conv sites: the fp32 decode's 128x96, 512x384 and 1024x768
+# levels; the DensePose train step (B = 2 at 800x1088: res3's conv2, P3,
+# P2, a slab of 16 RoIs), FaceNet's 96x96 level (Face at 384), Hand's
+# conv2_2 at 736; LPIPS's VGG16 on a 768x1024 image (conv2_2, conv3_1,
+# conv3_2, conv4_2)
+FP32_CONVS = [
+    (2, 128, 96, 512, 512), (2, 512, 384, 512, 256), (2, 1024, 768, 128, 128),
+    (2, 100, 136, 128, 128), (2, 100, 136, 256, 256), (2, 200, 272, 256, 256),
+    (16, 28, 28, 512, 512), (1, 96, 96, 256, 256), (1, 368, 368, 128, 128),
+    (1, 512, 384, 128, 128), (1, 256, 192, 128, 256), (1, 256, 192, 256, 256),
+    (1, 128, 96, 512, 512)]
 
 
-@pytest.mark.parametrize("b,h,w,cin,cout", PREPROCESS_CONVS)
+@pytest.mark.parametrize("b,h,w,cin,cout", PREPROCESS_CONVS + FP32_CONVS)
 def test_conv3x3_kernel_preprocess_shapes(dev, b, h, w, cin, cout):
-    """Each preprocessing conv shape through the wrapper its site takes, on
-    an fp32 x and bf16 weights: against the fp32 plain version (the bf16
-    bound) and the plain version on the bf16-rounded x (F32_TOL)."""
+    """Each fp32 conv shape of the preprocessing nets and the other fp32
+    sites through the wrapper its site takes (an image of 32 MiB or more
+    takes the hblock site), on an fp32 x and bf16 weights: against the
+    fp32 plain version (the bf16 bound) and the plain version on the
+    bf16-rounded x (F32_TOL)."""
     g = torch.Generator(device=dev).manual_seed(22)
     x = _randn(g, b, h, w, cin, dev=dev, dtype=torch.float32)
     k = _randn(g, 3, 3, cin, cout, dev=dev, scale=(9 * cin) ** -0.5)
     bb = _randn(g, cout, dev=dev, dtype=torch.float32)
     fn = (cuda_conv.conv3x3 if cuda_conv.conv3x3_supported(x, k)
           else cuda_conv.conv3x3_hblock)
-    assert (fn is cuda_conv.conv3x3_hblock) == ((h, w) == (272, 200))
+    assert (fn is cuda_conv.conv3x3_hblock) == (
+        h * w * cin * 4 >= cuda_conv.HBLOCK_MIN_BYTES)
     before = fn.launches
     got = fn(x, k, bb)
     want = cuda_conv.conv3x3_torch(x, k, bb)
@@ -1228,7 +1334,7 @@ def test_kernel_gradient_matches_plain_autograd(dev, name):
     VJP does: the plain side is ``ln_linear_torch`` on the dequantized
     weight; no gradient reaches its int8 weight or scales."""
     from idmvton_tpu_torch.ops.quant import dequantize_kernel_int8
-    from idmvton_tpu_torch.pipeline.graph import launch_counters
+    from idmvton_tpu_torch.ops.dispatch import launch_counters
     entry, plain, ins, kw = _vjp_cases(dev)[name]
     leaf = lambda t: (t.detach().clone().requires_grad_()
                       if t.is_floating_point() else t)
@@ -1304,7 +1410,7 @@ def test_tiny_train_steps_cuda_match_torch(dev):
     recompute, so the remat step launches more than the one without."""
     from idmvton_tpu_torch.core.config import SchedulerConfig
     from idmvton_tpu_torch.diffusion.scheduler import DDPMScheduler
-    from idmvton_tpu_torch.pipeline.graph import launch_counters
+    from idmvton_tpu_torch.ops.dispatch import launch_counters
     from idmvton_tpu_torch.pipeline.tryon import TryonModels
     from idmvton_tpu_torch.train.train_step import (
         flat_params, init_train_state, make_optimizer, make_train_step,
@@ -1381,7 +1487,7 @@ def test_concurrent_demo_requests_keep_exact_launch_counts(dev):
 
     from idmvton_tpu_torch.cli.demo import TryonService, parse_args
     from idmvton_tpu_torch.data.image import clip_preprocess
-    from idmvton_tpu_torch.pipeline.graph import launch_counters
+    from idmvton_tpu_torch.ops.dispatch import launch_counters
     from PIL import Image
     import numpy as np
     svc = TryonService(parse_args(["--tiny", "--device", "cuda", "--width",
@@ -1486,26 +1592,53 @@ def _dp_model(dev, seed=60, **cfg):
     return model
 
 
-def test_dp_train_step_cuda_matches_torch(dev):
-    """A DensePose train step at reduced depth (a 2x128 head, 256x352, B =
-    2): the losses ``impl="cuda"`` against ``impl="torch"`` within 5e-2
-    relative on the same uniforms and replayed proposals, the sampled sets
-    identical; the step launches exactly its forward's conv sites (no
-    kernel in the backward); two masked SGD steps stay finite and leave
-    stem, res2 and every frozen BN bitwise unchanged."""
-    from idmvton_tpu_torch.pipeline.graph import launch_counters
+# The DensePose R-CNN's train step: at reduced depth (a 2x128 head, B = 2
+# at 256x352, 3 persons of 32 points, 56x56 masks) and at the served
+# config (the 8x512 head, B = 2 at 800x1088, 3 persons of 128 points: 42
+# conv3x3 and 3 conv3x3_hblock sites a forward, read from the code: res3-5's
+# conv2, the FPN outputs and RPN conv above P2, the decoder, the head's 8
+# convs on each image's slab; at P2 the FPN output, the RPN conv and the
+# decoder conv). The served losses' bound and the gradients' (max rel, mean
+# rel) bound sit at 3-4x the first readings on an H100 (losses rel 3.7e-7
+# to 2.4e-3; gradients max rel 1.9e-2 to 2.8e-2, mean rel 7.2e-3 to 3.0e-2)
+DP_TRAIN = {
+    "reduced": dict(cfg=dict(dp_convs=2, dp_dim=128), hw=(256, 352), points=32,
+                    loss_tol=5e-2, convs=None, grads=None),
+    "served": dict(cfg={}, hw=(800, 1088), points=128, loss_tol=1e-2,
+                   convs={"conv3x3": 42, "conv3x3_hblock": 3},
+                   grads=(("backbone.res3.0.conv2.conv.kernel",
+                           "fpn.output.0.kernel", "rpn.conv.kernel",
+                           "dp_head.convs.7.kernel"), 1e-1, 1e-1)),
+}
+
+
+@pytest.mark.parametrize("config", list(DP_TRAIN))
+def test_dp_train_step_cuda_matches_torch(dev, config):
+    """A DensePose train step (``DP_TRAIN``): the losses ``impl="cuda"``
+    against ``impl="torch"`` within the config's bound on the same uniforms
+    and replayed proposals (and, served, four kernel-site leaves'
+    gradients), the sampled sets identical; the step launches exactly its
+    forward's conv sites (no kernel in the backward; served, the sites read
+    from the code); two masked SGD steps stay finite, move the head and
+    leave stem, res2 and every frozen BN bitwise unchanged."""
+    from idmvton_tpu_torch.ops.dispatch import launch_counters
     from idmvton_tpu_torch.preprocess.densepose import train as dt
-    model = _dp_model(dev, dp_convs=2, dp_dim=128)
-    images, gts = _dp_batch(dev)
+    c = DP_TRAIN[config]
+    model = _dp_model(dev, **c["cfg"])
+    h, w = c["hw"]
+    images, gts = _dp_batch(dev, h=h, w=w, p=c["points"])
     tcfg = dt.DetectionTrainConfig()
     params = dt.detection_params(model)
     tx = dt.make_detection_optimizer(tcfg, params)
     for k, p in params.items():
         p.requires_grad_(tx.trains(k))
     g = torch.Generator(device=dev).manual_seed(61)
-    n_anchors = (64 * 88 + 32 * 44 + 16 * 22 + 8 * 11 + 4 * 6) * 3
+    # three anchors a position of P2-P6
+    n_anchors = 3 * sum(-(-h // s) * -(-w // s) for s in (4, 8, 16, 32, 64))
+    n_prop = model.cfg.rpn_post_nms_topk + gts["boxes"].shape[1]
     uniforms = [[torch.rand(n, generator=g, device=dev)
-                 for n in (n_anchors, 1003, 1003)] for _ in range(2)]
+                 for n in (n_anchors, n_prop, n_prop)] for _ in range(2)]
+    leaves = c["grads"][0] if c["grads"] else ("rpn.conv.kernel",)
     counters = launch_counters()
     runs = {}
     for impl in ("cuda", "torch"):
@@ -1516,27 +1649,40 @@ def test_dp_train_step_cuda_matches_torch(dev):
             model, params, images, gts, tcfg=tcfg, uniforms=uniforms,
             impl=impl, record=rec, proposals=None if impl == "cuda"
             else [r["prop_idx"] for r in runs["cuda"][1]])
-        torch.autograd.grad(total, [params["rpn.conv.kernel"]])
+        grads = torch.autograd.grad(total, [params[k] for k in leaves])
         runs[impl] = ({k: float(v.detach()) for k, v in losses.items()}, rec,
                       {k: f.launches for k, f in counters.items()
-                       if f.launches})
+                       if f.launches}, grads)
     assert runs["torch"][2] == {} and runs["cuda"][2]["conv3x3"] > 0
+    if c["convs"] is not None:
+        assert runs["cuda"][2] == c["convs"], runs["cuda"][2]
+        torch_card.record("densepose_train", runs["cuda"][2])
     for k, want in runs["torch"][0].items():
-        assert abs(runs["cuda"][0][k] - want) <= 5e-2 * abs(want), k
+        got = runs["cuda"][0][k]
+        assert abs(got - want) <= c["loss_tol"] * abs(want), (k, got, want)
+    if c["grads"]:
+        _, max_tol, mean_tol = c["grads"]
+        for k, a, b in zip(leaves, runs["cuda"][3], runs["torch"][3]):
+            mean = float((a - b).abs().mean() / b.abs().mean())
+            assert _rel_err(a, b) <= max_tol and mean <= mean_tol, k
     for rc, rt in zip(runs["cuda"][1], runs["torch"][1]):
-        for key in ("rpn_w", "prop_idx", "roi_w", "dp_idx", "dp_valid"):
+        for key in ("rpn_w", "prop_idx", "roi_w", "fg", "dp_idx",
+                    "dp_valid"):
             assert torch.equal(rc[key], rt[key]), key
     step = dt.make_detection_train_step(tcfg, tx, impl="cuda")
     state = tx.init(params)
     frozen = {k: p.detach().clone() for k, p in params.items()
               if not tx.trains(k)}
+    watch = "dp_head.convs.1.kernel"
     for _ in range(2):
+        before = params[watch].detach().clone()
         for f in counters.values():
             f.launches = 0
         state, metrics = step(model, params, state, images, gts, g)
         assert all(torch.isfinite(v) for v in metrics.values()), metrics
         assert {k: f.launches for k, f in counters.items()
                 if f.launches} == runs["cuda"][2]
+        assert not torch.equal(params[watch], before)
     assert all(torch.equal(params[k], p) for k, p in frozen.items())
 
 
@@ -1560,21 +1706,45 @@ def test_nms_topk_over_every_anchor_on_the_card(dev):
     assert rec_g["visited"] == rec_c["visited"] < n
 
 
-def test_face_and_hand_cuda_match_torch(dev):
-    """Face at 96 and Hand at two scales of 96 (random nets with random
-    biases): heatmaps ``cuda`` against ``torch`` within the bf16 bound
-    (5e-2 of the largest magnitude), the cuda calls on the conv kernel."""
+# Face and Hand at the served sizes: Face at 384 (12 conv3x3 sites a call:
+# the trunk's conv2_2 .. conv5_3_CPM) and Hand at its four scales (184 /
+# 368 / 552 / 736; 48 sites, of which five inputs reach 32 MiB and take
+# conv3x3_hblock: conv2_2 at 552 and 736, conv3_2-3_4 at 736), read on an
+# H100. Their bounds: (max rel, mean rel) of the heatmaps and the share of
+# peaks at the same pixel, at about 4x the first readings (Face max rel
+# 2.3e-4, mean rel 9.1e-5; Hand 2.5e-4 / 1.0e-4; every peak equal)
+FACE_HAND_SERVED = {"face": ({"conv3x3": 12}, (1e-3, 4e-4)),
+                    "hand": ({"conv3x3": 43, "conv3x3_hblock": 5},
+                             (1e-3, 4e-4))}
+
+
+@pytest.mark.parametrize("size", ["small", "served"])
+def test_face_and_hand_cuda_match_torch(dev, size):
+    """Face and Hand (random nets with random biases), small (Face at 96,
+    Hand at two scales of 96) and served (``FACE_HAND_SERVED``): heatmaps
+    ``cuda`` against ``torch``, small within the bf16 bound (5e-2 of the
+    largest magnitude) and the cuda calls on the conv kernel; served within
+    its bounds, 90% of the peaks at the same pixel and each cuda call's
+    launches exact."""
     import numpy as np
-    from idmvton_tpu_torch.pipeline.graph import launch_counters
+    from idmvton_tpu_torch.ops.dispatch import launch_counters
     from idmvton_tpu_torch.preprocess import openpose_extra as ox
     counters = launch_counters()
     rng = np.random.default_rng(70)
-    img = rng.integers(0, 256, (120, 100, 3), np.uint8)
-    for make, kw in ((lambda n, i: ox.Face(n, input_size=96, impl=i),
-                      ox.init_facenet),
-                     (lambda n, i: ox.Hand(n, boxsize=96, scales=(0.5, 1.0),
-                                           map_size=32, impl=i),
-                      ox.init_handpose)):
+    if size == "small":
+        img = rng.integers(0, 256, (120, 100, 3), np.uint8)
+        nets = (("face", lambda n, i: ox.Face(n, input_size=96, impl=i),
+                 ox.init_facenet, img),
+                ("hand", lambda n, i: ox.Hand(n, boxsize=96,
+                                              scales=(0.5, 1.0),
+                                              map_size=32, impl=i),
+                 ox.init_handpose, img))
+    else:
+        nets = (("face", lambda n, i: ox.Face(n, impl=i), ox.init_facenet,
+                 rng.integers(0, 256, (200, 160, 3), np.uint8)),
+                ("hand", lambda n, i: ox.Hand(n, impl=i), ox.init_handpose,
+                 rng.integers(0, 256, (180, 180, 3), np.uint8)))
+    for name, make, kw, img in nets:
         net = kw(71, device=dev)
         gen = torch.Generator(device=dev).manual_seed(72)
         with torch.no_grad():
@@ -1582,33 +1752,74 @@ def test_face_and_hand_cuda_match_torch(dev):
                 if getattr(m, "bias", None) is not None:
                     m.bias.copy_(torch.randn(m.bias.shape, generator=gen,
                                              device=dev) * 0.1)
-        out = {}
+        out, wrap = {}, {}
         for impl in ("cuda", "torch"):
             for f in counters.values():
                 f.launches = 0
-            out[impl] = make(net, impl).heatmaps(img)
+            wrap[impl] = make(net, impl)
+            out[impl] = wrap[impl].heatmaps(img)
             counts = {k: f.launches for k, f in counters.items()
                       if f.launches}
             assert (counts.get("conv3x3", 0) > 0) == (impl == "cuda"), counts
+            if size == "served" and impl == "cuda":
+                assert counts == FACE_HAND_SERVED[name][0], (name, counts)
+                torch_card.record(name, counts)
         scale = float(np.abs(out["torch"]).max())
-        assert float(np.abs(out["cuda"] - out["torch"]).max()) \
-            <= 5e-2 * scale
+        if size == "small":
+            assert float(np.abs(out["cuda"] - out["torch"]).max()) \
+                <= 5e-2 * scale
+            continue
+        a, b = (torch.from_numpy(out[i]) for i in ("cuda", "torch"))
+        max_tol, mean_tol = FACE_HAND_SERVED[name][1]
+        assert _rel_err(a, b) <= max_tol, name
+        assert float((a - b).abs().mean() / b.abs().mean()) <= mean_tol, name
+        if name == "face":   # a channel's peak, or none below threshold
+            pc, pt = ([wrap[i].peaks(out[i][:, :, c:c + 1]).tolist()
+                       for c in range(out[i].shape[-1])]
+                      for i in ("cuda", "torch"))
+            share = float(np.mean([x == y for x, y in zip(pc, pt)]))
+        else:
+            pc, pt = (wrap[i].peaks(out[i], img.shape[:2])
+                      for i in ("cuda", "torch"))
+            share = float((pc == pt).all(-1).mean())
+        assert share >= 0.9, (name, share)
 
 
-def test_inference_on_dataset_on_the_card(dev):
-    """``inference_on_dataset`` with ``DensePose.detect`` on the card over
-    two images: the host runtime scores them, 12 finite stats."""
+@pytest.mark.parametrize("size", ["small", "served"])
+def test_inference_on_dataset_on_the_card(dev, size):
+    """``inference_on_dataset`` with ``DensePose.detect`` on the card: small
+    (a 1x128 head at short edge 256) over two 240x320 images, served (the
+    served R-CNN at short edge 800) over three 480x640 images, each
+    launching its R-CNN's conv sites exactly (short edge 800 of 480x640:
+    800x1067 padded to 800x1088, the demo's 66 conv3x3 and 3 conv3x3_hblock
+    sites, read on an H100); the host runtime scores them, 12 finite
+    stats."""
     import numpy as np
+    from idmvton_tpu_torch.ops.dispatch import launch_counters
     from idmvton_tpu_torch.preprocess.densepose import evaluate
     from idmvton_tpu_torch.preprocess.densepose.visualize import DensePose
-    dp = DensePose(_dp_model(dev, dp_convs=1, dp_dim=128), short_edge=256,
-                   max_size=400)
     rng = np.random.default_rng(80)
-    data = [(i, rng.integers(0, 256, (240, 320, 3), np.uint8),
-             np.asarray([[20, 30, 150, 230]], np.float32)) for i in range(2)]
+    if size == "small":
+        dp = DensePose(_dp_model(dev, dp_convs=1, dp_dim=128), short_edge=256,
+                       max_size=400)
+        data = [(i, rng.integers(0, 256, (240, 320, 3), np.uint8),
+                 np.asarray([[20, 30, 150, 230]], np.float32))
+                for i in range(2)]
+    else:
+        dp = DensePose(_dp_model(dev))
+        data = [(i, rng.integers(0, 256, (480, 640, 3), np.uint8),
+                 np.asarray([[40, 60, 300, 460], [320, 20, 600, 470]],
+                            np.float32)) for i in range(3)]
+    counters = launch_counters()
+    for f in counters.values():
+        f.launches = 0
     out = evaluate.inference_on_dataset(dp.detect, data)
-    assert out["n_images"] == 2 and out["stats"].shape == (12,)
+    counts = {k: f.launches for k, f in counters.items() if f.launches}
+    assert out["n_images"] == len(data) and out["stats"].shape == (12,)
     assert np.isfinite(out["stats"]).all()
+    if size == "served":
+        assert counts == {"conv3x3": 3 * 66, "conv3x3_hblock": 3 * 3}, counts
+        torch_card.record("evaluate", counts)
 
 
 # ---------------------------------------------------------------------------
@@ -1771,26 +1982,78 @@ def test_adamw8bit_kernel_zero1_cut_matches_plain(dev):
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def two_ranks(dev):
+@pytest.fixture(scope="module", params=["tiny", "full"])
+def two_ranks(dev, request):
+    """Both ranks' results of ``onecard.all_ranks`` with the tiny UNets and
+    ViT, or at full width."""
     from idmvton_tpu_torch.parallel import onecard
     from idmvton_tpu_torch.parallel.dryrun import spawn
-    return spawn(onecard.all_ranks, 2, 7, "cuda", True, backend="gloo",
-                 timeout=600)
+    ranks = spawn(onecard.all_ranks, 2, 7, "cuda", request.param == "tiny",
+                  backend="gloo", timeout=600)
+    return request.param, ranks
+
+
+# One full-width denoise step (GarmentNet at batch 2, TryonNet over the CFG
+# batch of 4, 128x96 latents), per rank, read from the code. Single
+# process: ln_linear at TryonNet's to_qkv, to_q and ff proj_in of its 70
+# blocks and GarmentNet's to_q and ff (its emit LayerNorm is
+# fused_layer_norm): 210 + 140; 70 fused_layer_norm; GroupNorm 46 TryonNet
+# (4 + 4 + 2 + 4 + 2 resnets' and Transformer2Ds' down, 4 + 1 mid, 6 + 3 +
+# 6 + 3 + 6 up, conv_norm_out) + 39 GarmentNet (no plain up block, no
+# conv_norm_out); 3x3 convs with Cin, Cout >= 128: 36 + 30 (conv_in and
+# conv_out stay plain); flash_attention_gemm at every self-attention site,
+# 70 + 70. TP=2 (``parallel/tp.py``): the 640-wide level keeps 5 heads a
+# rank (H*D = 320, not a multiple of 128), so its 10 + 10 self-attention
+# sites take flash_attention (over 3072 own [+ 3072 garment] keys) and its
+# to_qkv (N = 960) and to_q (N = 320) leave ln_linear (N % 128 != 0): 320
+# ln_linear (TryonNet 60 x 3 + 10, GarmentNet 60 x 2 + 10), 120
+# flash_attention_gemm, 20 flash_attention; GroupNorm and convs are
+# replicated. SP=2 (``parallel/sp.py``): every conv runs on its 64 + 2 (32
+# + 2, 16 + 2) rows, GroupNorm on local rows (>= 64 positions everywhere),
+# and self-attention gathers K / V and runs flash_attention at all 140
+# sites.
+PARALLEL_STEP = {
+    "single": {"ln_linear": 350, "fused_layer_norm": 70,
+               "gn_spatial_stats": 85, "gn_apply": 85, "conv3x3": 66,
+               "flash_attention_gemm": 140},
+    "tp": {"ln_linear": 320, "fused_layer_norm": 70, "gn_spatial_stats": 85,
+           "gn_apply": 85, "conv3x3": 66, "flash_attention_gemm": 120,
+           "flash_attention": 20},
+    "sp": {"ln_linear": 350, "fused_layer_norm": 70, "gn_spatial_stats": 85,
+           "gn_apply": 85, "conv3x3": 66, "flash_attention": 140},
+}
+# (max rel, mean rel) of the gathered TP=2 / SP=2 guided noise prediction
+# against the single-process impl="cuda" step on the same inputs: the tiny
+# UNets' (bf16 partial sums reduced in another order, other kernel routes
+# at the split widths), and the full width's at 2x the max and 1.3x the
+# mean of its first reading on an H100 (TP max rel 2.94e-2, mean rel
+# 2.68e-2; SP 2.84e-2 / 2.71e-2): a dropped bias or LayerNorm shift or a
+# lost garment K/V falls outside
+PARALLEL_TOLS = {"tiny": (0.1, 5e-2), "full": (6e-2, 3.5e-2)}
 
 
 def test_two_ranks_tp_sp_step_match_single_process(two_ranks):
-    """The tiny UNets' CFG denoise step at 16x16 latents under TP=2 and
-    SP=2 against the single-process impl="cuda" step on each rank: finite,
-    max rel <= 0.1 and mean rel <= 5e-2 (bf16 partial sums reduced in
-    another order, other kernel routes at the split widths); SP and TP run
-    kernels (their launches are counted)."""
-    for r in two_ranks:
+    """The CFG denoise step (the tiny UNets at 16x16 latents, or at full
+    width) under TP=2 and SP=2 against the single-process impl="cuda" step
+    on each rank: finite and within ``PARALLEL_TOLS``; SP and TP run
+    kernels (their launches are counted), at full width each rank exactly
+    ``PARALLEL_STEP``'s."""
+    from idmvton_tpu_torch.ops.dispatch import launch_counters
+    width, ranks = two_ranks
+    max_tol, mean_tol = PARALLEL_TOLS[width]
+    for r in ranks:
         d = r["denoise"]
         for mode in ("tp", "sp"):
             mx, mean = d[f"{mode}_err"]
-            assert mx <= 0.1 and mean <= 5e-2, (mode, mx, mean)
+            assert mx <= max_tol and mean <= mean_tol, (mode, mx, mean)
             assert sum(d[mode].values()) > 0, mode
+        if width == "full":
+            for mode, want in PARALLEL_STEP.items():
+                want = dict(dict.fromkeys(launch_counters(), 0), **want)
+                assert d[mode] == want, (mode, d[mode])
+    if width == "full":
+        torch_card.record("tp", ranks[0]["denoise"]["tp"])
+        torch_card.record("sp", ranks[0]["denoise"]["sp"])
 
 
 def test_two_ranks_zero1_micro_step_matches_one_rank(dev, two_ranks):
@@ -1802,7 +2065,7 @@ def test_two_ranks_zero1_micro_step_matches_one_rank(dev, two_ranks):
     from idmvton_tpu_torch.parallel.onecard import _host, micro_step
     torch.backends.cudnn.allow_tf32 = False
     one = _host(*micro_step(dev, 7))
-    for r in two_ranks:
+    for r in two_ranks[1]:
         for mode in ("replicated", "zero1"):
             _assert_micro_close(r["train"][mode], one, one["mu"])
         assert r["train"]["zero1"]["moment_bytes"] <= 0.5 * one["moment_bytes"]
@@ -1811,13 +2074,19 @@ def test_two_ranks_zero1_micro_step_matches_one_rank(dev, two_ranks):
 def _assert_micro_close(got, one, mu):
     """A dp=2 micro step against one rank's: the loss within 1e-5
     relative, the masters within 1e-5 where the gradient (adamw's first
-    moment ``mu``) is above 1e-3 of its leaf's largest, else within 3e-5."""
+    moment ``mu``) is above 1e-3 of its leaf's largest, else within 3e-5
+    (Adam's first step is lr * g / |g|: such an entry may flip its step's
+    sign), and at most 1e-3 of all entries flipped."""
     import numpy as np
     assert abs(got["loss"] - one["loss"]) <= 1e-5 * abs(one["loss"])
+    flips = total = 0
     for k, w in one["params"].items():
         err = np.abs(got["params"][k] - w)
         tiny = np.abs(mu[k]) < 1e-3 * np.abs(mu[k]).max()
         assert (err[~tiny] <= 1e-5).all() and (err[tiny] <= 3e-5).all(), k
+        flips += int((err[tiny] > 1e-5).sum())
+        total += err.size
+    assert flips <= 1e-3 * total, (flips, total)
 
 
 def test_two_ranks_zero1_adamw8bit_step_matches_one_rank(dev, two_ranks):
@@ -1831,7 +2100,7 @@ def test_two_ranks_zero1_adamw8bit_step_matches_one_rank(dev, two_ranks):
     torch.backends.cudnn.allow_tf32 = False
     mu = _host(*micro_step(dev, 7))["mu"]
     one = _host(*micro_step(dev, 7, optimizer="adamw8bit"))
-    for rank, r in enumerate(two_ranks):
+    for rank, r in enumerate(two_ranks[1]):
         got = r["train"]["zero1_adamw8bit"]
         _assert_micro_close(got, one, mu)
         assert got["blocks"] == (672 * rank, 672 * (rank + 1))
@@ -1840,6 +2109,7 @@ def test_two_ranks_zero1_adamw8bit_step_matches_one_rank(dev, two_ranks):
 
 
 def test_two_ranks_gpipe_is_bit_exact(two_ranks):
-    """The tiny ViT in 2 stages x 2 microbatches equals its sequential
-    forward over the same microbatches bit for bit."""
-    assert all(r["pipeline"]["equal"] for r in two_ranks)
+    """ViT (tiny, or ViT-H at full width) in 2 stages x 2 microbatches
+    equals its sequential forward over the same microbatches bit for
+    bit."""
+    assert all(r["pipeline"]["equal"] for r in two_ranks[1])

@@ -43,6 +43,7 @@ from idmvton_tpu_torch.diffusion.scheduler import DDPMScheduler as TSched
 from idmvton_tpu_torch.diffusion.scheduler import check_denoising_range
 from idmvton_tpu_torch.models.attention import quantize_unet_linears_int8
 from idmvton_tpu_torch.ops import cuda_attention, cuda_conv, cuda_norm
+from idmvton_tpu_torch.ops import dispatch as tdispatch
 from idmvton_tpu_torch.pipeline import graph as tgraph
 from idmvton_tpu_torch.pipeline import tryon as ttryon
 from idmvton_tpu_torch.weights.from_jax import load_jax_params
@@ -510,7 +511,7 @@ def test_value_errors_match_jax(stacks, inputs, case):
 
 
 def test_counted_capture_restores_and_adds_on_replay():
-    counters = tgraph.launch_counters()
+    counters = tdispatch.launch_counters()
     assert set(counters) == {
         "ln_linear", "fused_layer_norm", "gn_spatial_stats", "conv3x3",
         "conv3x3_hblock", "flash_attention_gemm", "ln_linear_i8",

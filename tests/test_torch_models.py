@@ -146,15 +146,19 @@ def test_port_imports_no_jax():
 
 
 def test_chip_smoke_imports_no_jax():
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
-    mods = set()
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            mods |= {a.name.split(".")[0] for a in node.names}
-        elif isinstance(node, ast.ImportFrom):
-            mods.add(node.module.split(".")[0])
-    assert "idmvton_tpu_torch" in mods and "torch" in mods
-    assert not mods & {"jax", "jaxlib", "idmvton_tpu"}
+    """``chip_smoke.py`` and what it runs on the card besides the port (the
+    card tests and their shared module) import the port and torch, and
+    nothing of JAX."""
+    for path in ("chip_smoke.py", "tests/torch_card.py",
+                 "tests/test_torch_cuda.py", "tests/test_torch_cuda_full.py"):
+        mods = set()
+        for node in ast.walk(ast.parse((ROOT / path).read_text())):
+            if isinstance(node, ast.Import):
+                mods |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                mods.add(node.module.split(".")[0])
+        assert "idmvton_tpu_torch" in mods and "torch" in mods, path
+        assert not mods & {"jax", "jaxlib", "idmvton_tpu"}, path
 
 
 # ---------------------------------------------------------------------------

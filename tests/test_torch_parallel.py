@@ -150,7 +150,7 @@ def test_emit_features_dp2_sp2(unet_runs):
 
 
 def test_guided_step_tp_sp_match_single_process_fp32():
-    """The try-on step the card's phase 14 runs (``parallel.onecard``:
+    """The try-on step the two-rank card tests run (``parallel.onecard``:
     GarmentNet's emitted features, TryonNet over the CFG batch with the
     uncond rows' garment K/V zeroed, the guidance), on the tiny UNets at
     16x16 latents in fp32 on 2 ranks: SP=2 (rows gathered) and TP=2 against
